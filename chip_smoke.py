@@ -3,22 +3,31 @@
 
 Phases, each fatal on failure (the script exits non-zero):
 
-  1. card: name, power limit, and the build of every CUDA kernel from the
-     sources in this checkout (one nvcc per source, all in parallel);
+  1. card: name, power limit, and the build of all four CUDA kernels
+     from the sources in this checkout (one nvcc per source, all in
+     parallel);
   2. kernels: each kernel against its plain torch version, in bf16 and
-     f32, at the shapes of the main path and around them, with times
-     (median of CUDA events), the plain version's time, the card's bound
-     and, for flash attention, ``scaled_dot_product_attention``'s time as
-     a yardstick the port never calls;
-  3. serving: llama32-3b at full width in bf16 (28 layers, seeded random
-     weights), 4 requests of 1024 prompt + 32 output tokens, in each of
-     the five setups, through ``repro_torch.launch.serve.serve``; checks
-     the streams, the first tokens across setups, teacher-forced decode
-     logits against a dense plain-attention recompute, and that every
-     prefill and decode step went through the kernels;
-  4. parity: the same workload in f32 at full width and 4 layers, TF32
-     off, must give identical token streams in all five setups, and its
-     teacher-forced decode logits must match a dense recompute.
+     f32, at the shapes of the main paths and around them (flash at hd
+     128 and hd 80, ragged lengths, carried states), with times (median
+     of CUDA events), the plain version's time, the card's bound and,
+     for flash attention, ``scaled_dot_product_attention``'s time as a
+     yardstick the port never calls;
+  3. serving: three archs at full width and depth in bf16 with seeded
+     random weights, one after the other (each freed before the next):
+     llama32-3b (28 layers), rwkv6-3b (32) and zamba2-2.7b (54); 4
+     requests of 1024 prompt + 32 output tokens in each of the five
+     setups, through ``repro_torch.launch.serve.serve``. Every kernel's
+     launch count is set to 0 just before an arch's serving and read
+     just after; each must equal layers x prefills (flash: 9 shared-block
+     calls x prefills for zamba2; paged: layers x decode steps for
+     llama). Checks the streams, the first tokens across setups,
+     teacher-forced decode logits of request 0 against an f32
+     kernel-free recompute built from ``kernels/ref.py``, and times one
+     prefill, one decode step and one state store+fetch per medium;
+  4. parity: f32 at full width and reduced depth (llama32-3b 4 layers,
+     rwkv6-3b 4, zamba2-2.7b 12, i.e. 2 groups), TF32 off, must give
+     identical token streams in all five setups, and teacher-forced
+     decode logits that match a kernel-free recompute.
 
 It prints the kernels' JSON line and the card's name and power limit
 before its last line, which is
@@ -28,6 +37,7 @@ before its last line, which is
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -38,7 +48,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-ARCH = "llama32-3b"
+ARCHS = ("llama32-3b", "rwkv6-3b", "zamba2-2.7b")
+PARITY_LAYERS = {"llama32-3b": 4, "rwkv6-3b": 4, "zamba2-2.7b": 12}
 N_REQ, PROMPT, OUTPUT = 4, 1024, 32
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
@@ -127,6 +138,9 @@ def flash_cases():
     yield "hd32", 2, 1024, 1024, 8, 2, 32, True, 0, 0
     yield "window", 1, 1024, 1024, 24, 8, 128, True, 256, 0
     yield "noncausal", 2, 384, 384, 8, 8, 64, False, 0, 0
+    yield "hd80", 1, 1024, 1024, 32, 32, 80, True, 0, 0      # zamba2's
+    yield "hd80-win", 1, 1024, 1024, 32, 32, 80, True, 256, 0
+    yield "hd80-rag", 1, 1000, 1000, 32, 32, 80, True, 0, 0
 
 
 def paged_cases():
@@ -135,6 +149,21 @@ def paged_cases():
     yield "mha", 4, 8, 8, 128, 16, [1, 17, 530, 1056]
     yield "g7-hd64", 3, 14, 2, 64, 16, [16, 300, 777]
     yield "hd32", 2, 4, 2, 32, 8, [5, 64]
+
+
+def rwkv6_cases():
+    # (label, B, T, NH, hd, carried): rwkv6-3b's prefill is B=1, T=1024
+    yield "main", 1, 1024, 40, 64, False
+    yield "ragged", 1, 1000, 40, 64, False
+    yield "B4", 4, 1024, 40, 64, False
+    yield "carried", 1, 1024, 40, 64, True
+
+
+def mamba2_cases():
+    # (label, B, T, NH, P, N, carried): zamba2's prefill is B=1, T=1024
+    yield "main", 1, 1024, 80, 64, 64, False
+    yield "ragged", 1, 1000, 80, 64, 64, False
+    yield "carried", 1, 1024, 80, 64, 64, True
 
 
 def flash_pairs(q_offset, S, T, causal, window) -> int:
@@ -148,22 +177,39 @@ def flash_pairs(q_offset, S, T, causal, window) -> int:
     return total
 
 
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def scan_in_halves(torch, scan, T: int, state):
+    """``scan(time slice, state)`` over the first half of T, then over
+    the second from the carried state: (y of both halves, final state)."""
+    y1, s1 = scan(slice(0, T // 2), state)
+    y2, s2 = scan(slice(T // 2, T), s1)
+    return torch.cat((y1, y2), dim=1), s2
+
+
 def phase_kernels(torch):
-    from repro_torch.kernels import flash_prefill, paged_decode, ref
+    from repro_torch.kernels import (flash_prefill, mamba2_ssd,
+                                     paged_decode, ref, rwkv6_scan)
     import torch.nn.functional as F
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
         for (label, B, S, T, H, KV, hd, causal, window,
              q_offset) in flash_cases():
-            q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
-            k = torch.randn(B, T, KV, hd, generator=g, device="cuda").to(dt)
-            v = torch.randn(B, T, KV, hd, generator=g, device="cuda").to(dt)
+            q = randn(B, S, H, hd).to(dt)
+            k = randn(B, T, KV, hd).to(dt)
+            v = randn(B, T, KV, hd).to(dt)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             out = flash_prefill.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q, k, v, **kw)
@@ -203,11 +249,9 @@ def phase_kernels(torch):
         for label, B, H, KV, hd, page, lens in paged_cases():
             max_pages = -(-max(lens) // page)
             P = B * max_pages + 7
-            q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
-            kp = torch.randn(P, page, KV, hd, generator=g,
-                             device="cuda").to(dt)
-            vp = torch.randn(P, page, KV, hd, generator=g,
-                             device="cuda").to(dt)
+            q = randn(B, H, hd).to(dt)
+            kp = randn(P, page, KV, hd).to(dt)
+            vp = randn(P, page, KV, hd).to(dt)
             perm = torch.randperm(P, generator=g, device="cuda")
             bt = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
             sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -235,17 +279,94 @@ def phase_kernels(torch):
                 rows["paged_attention"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
+
+        for label, B, T, NH, hd, carried in rwkv6_cases():
+            r, k, v = (randn(B, T, NH, hd).to(dt) for _ in range(3))
+            # the model's decay exp(-exp(w0 + lora)), w0 = -1
+            w = torch.exp(-torch.exp(0.5 * randn(B, T, NH, hd) - 1.0))
+            u = 0.1 * randn(NH, hd)
+            s0 = randn(B, NH, hd, hd) if carried else None
+            if carried:
+                y, s = scan_in_halves(torch, lambda t, st: (
+                    rwkv6_scan.rwkv6_scan(r[:, t], k[:, t], v[:, t],
+                                          w[:, t], u, st)), T, s0)
+            else:
+                y, s = rwkv6_scan.rwkv6_scan(r, k, v, w, u, s0)
+            y_ref, s_ref = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+            torch.cuda.synchronize()
+            err = max(max_err(torch, y, y_ref), max_err(torch, s, s_ref))
+            ok = within(torch, y, y_ref, tol) and \
+                within(torch, s, s_ref, TOL["float32"])
+            ms = cuda_ms(torch, lambda: rwkv6_scan.rwkv6_scan(
+                r, k, v, w, u, s0), flush=flush)
+            plain_ms = cuda_ms(torch, lambda: ref.rwkv6_scan_ref(
+                r, k, v, w, u, s0), reps=3, warmup=1)
+            # per (step, key c, value j): S update and y term, 2 ops each
+            flops = 4.0 * B * T * NH * hd * hd
+            nbytes = nbytes_of(r, k, v, w, u, y, s) + \
+                (s.numel() * 4 if carried else 0)
+            b_ms, b_by = bound(flops, nbytes, dtype_name)
+            log(f"rwkv6 {label:9s} {dtype_name:8s} B={B} T={T} NH={NH} "
+                f"hd={hd} carried={carried}: max_abs_err={err:.3e} "
+                f"(tol {tol}, state {TOL['float32']}) kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            require(ok, f"rwkv6 {label} {dtype_name}: max_abs_err "
+                        f"{err:.3e} over tolerance")
+            if label == "main" and dtype_name == "bfloat16":
+                rows["rwkv6_scan"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+            del r, k, v, w, y, s, y_ref, s_ref
+
+        for label, B, T, NH, P, N, carried in mamba2_cases():
+            x = randn(B, T, NH, P).to(dt)
+            # softplus(dt_raw + dt_bias), dt_bias in [-4, -1]: dt ~ 0.1
+            dts = F.softplus(randn(B, T, NH) - 2.5)
+            A = -torch.linspace(1.0, 16.0, NH, device="cuda")
+            Bm, Cm = randn(B, T, N).to(dt), randn(B, T, N).to(dt)
+            D = randn(NH)
+            s0 = randn(B, NH, N, P) if carried else None
+            if carried:
+                y, s = scan_in_halves(torch, lambda t, st: (
+                    mamba2_ssd.mamba2_ssd(x[:, t], dts[:, t], A, Bm[:, t],
+                                          Cm[:, t], D, st)), T, s0)
+            else:
+                y, s = mamba2_ssd.mamba2_ssd(x, dts, A, Bm, Cm, D, s0)
+            y_ref, s_ref = ref.mamba2_ssd_ref(x, dts, A, Bm, Cm, D, s0)
+            torch.cuda.synchronize()
+            err = max(max_err(torch, y, y_ref), max_err(torch, s, s_ref))
+            ok = within(torch, y, y_ref, tol) and \
+                within(torch, s, s_ref, TOL["float32"])
+            ms = cuda_ms(torch, lambda: mamba2_ssd.mamba2_ssd(
+                x, dts, A, Bm, Cm, D, s0), flush=flush)
+            plain_ms = cuda_ms(torch, lambda: ref.mamba2_ssd_ref(
+                x, dts, A, Bm, Cm, D, s0), reps=3, warmup=1)
+            # per (step, head, n, p): S update and y term, 2 ops each
+            flops = 4.0 * B * T * NH * N * P
+            nbytes = nbytes_of(x, dts, A, Bm, Cm, D, y, s) + \
+                (s.numel() * 4 if carried else 0)
+            b_ms, b_by = bound(flops, nbytes, dtype_name)
+            log(f"mamba2 {label:8s} {dtype_name:8s} B={B} T={T} NH={NH} "
+                f"P={P} N={N} carried={carried}: max_abs_err={err:.3e} "
+                f"(tol {tol}, state {TOL['float32']}) kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            require(ok, f"mamba2 {label} {dtype_name}: max_abs_err "
+                        f"{err:.3e} over tolerance")
+            if label == "main" and dtype_name == "bfloat16":
+                rows["mamba2_ssd"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+            del x, dts, Bm, Cm, y, s, y_ref, s_ref
     del flush_buf
     torch.cuda.empty_cache()
     return rows
 
 
 # ----------------------------------------------------------------------
-# phase 3: serving at full width, bf16
+# kernel-free recomputes (the plain functions of kernels/ref.py, called
+# directly): logits of every position of ``tokens`` [1, N]
 # ----------------------------------------------------------------------
 def dense_plain_logits(torch, params, cfg, tokens):
-    """Logits of every position of ``tokens`` [1, N] through the port's
-    layers with plain attention (no kernel): the recompute yardstick."""
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
@@ -259,21 +380,71 @@ def dense_plain_logits(torch, params, cfg, tokens):
     return L.lm_logits(params["embed"], x, cfg)[0]
 
 
+def rwkv6_plain_logits(torch, params, cfg, tokens):
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv6 as RW
+    x = L.embed(params["embed"], tokens, cfg)
+    for lp in params["layers"]:
+        h = L.rms_norm(x, lp["norm_tm"], cfg.norm_eps)
+        r, k, v, w, gate = RW._time_mix_in(lp, h, cfg, None)
+        y, _ = ref.rwkv6_scan_ref(r, k, v, w, lp["u"])
+        x = x + RW._time_mix_out(lp, y, gate, h, cfg)
+        h = L.rms_norm(x, lp["norm_cm"], cfg.norm_eps)
+        x = x + RW.channel_mix_seq(lp, h, None)[0]
+    return L.lm_logits(params["embed"], x, cfg)[0]
+
+
+def zamba2_plain_logits(torch, params, cfg, tokens):
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as MB
+    N = tokens.shape[1]
+    x = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(N, device=tokens.device)[None]
+    shared = params["shared_attn"]
+    for group in MB._groups(params, cfg):
+        q, k, v = MB._shared_attn_in(shared, x, positions, cfg)
+        attn = ref.flash_attention_ref(q, k, v, causal=True)
+        x = x + L.out_project(shared["attn"], attn, cfg)
+        for lp in group:
+            xh, dt, A, Bm, Cm, z, _ = MB._mamba_in(lp, x, cfg, None)
+            y, _ = ref.mamba2_ssd_ref(xh, dt, A, Bm, Cm, lp["D"])
+            x = x + MB._mamba_out(lp, y, z, cfg)
+    return L.lm_logits(params["embed"], x, cfg)[0]
+
+
+PLAIN_LOGITS = {"dense": dense_plain_logits, "ssm": rwkv6_plain_logits,
+                "hybrid": zamba2_plain_logits}
+
+
 def teacher_forced_logits(torch, model, params, cfg, prompt, outputs):
-    """The port's own path over request 0: flash prefill of the prompt,
-    then paged decode of each emitted token (teacher forcing)."""
-    from repro_torch.core import DevicePagedKV, PagedKVPool
-    from repro_torch.models.layers import dtype_of
+    """The port's own serving path over request 0 (teacher forcing):
+    kernel prefill of the prompt, then one decode step per emitted token
+    (dense: paged decode through the kernel; recurrent: the state's
+    plain step functions, from the prefill state sized as the executor
+    sizes it)."""
     S = len(prompt)
     n = len(outputs) - 1
+    toks = torch.tensor(prompt, device="cuda")[None]
+    logits = []
+    if model.family != "dense":
+        _, state = model.prefill(params, {"tokens": toks},
+                                 s_max=S + len(outputs) + 2)
+        for i in range(n):
+            lg, state = model.decode_step(
+                params, torch.tensor([outputs[i]], device="cuda"), state,
+                torch.tensor([S + i], dtype=torch.int32, device="cuda"))
+            logits.append(lg[0])
+        return torch.stack(logits)
+    from repro_torch.core import DevicePagedKV, PagedKVPool
+    from repro_torch.models.layers import dtype_of
     pool = PagedKVPool(num_pages=-(-(S + n + 1) // 16), page_size=16)
     kv = DevicePagedKV(pool, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
                        dtype=dtype_of(cfg.compute_dtype), device="cuda")
-    toks = torch.tensor(prompt, device="cuda")[None]
     _, cache = model.prefill(params, {"tokens": toks})
     pool.allocate(0, S)
     kv.write_prefill(0, cache.k[:, 0], cache.v[:, 0])
-    logits = []
     for i in range(n):
         pool.allocate(0, 1)
         bt = torch.tensor([pool.block_table(0)], dtype=torch.int32,
@@ -284,31 +455,57 @@ def teacher_forced_logits(torch, model, params, cfg, prompt, outputs):
     return torch.stack(logits)
 
 
-def _to_f32(params):
-    return {"embed": {k: v.float() for k, v in params["embed"].items()},
-            "layers": [{k: ({kk: vv.float() for kk, vv in v.items()}
-                            if isinstance(v, dict) else v.float())
-                        for k, v in lp.items()} for lp in params["layers"]]}
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_f32(v) for v in tree]
+    return tree.float()
 
 
-def phase_serving(torch):
+# ----------------------------------------------------------------------
+# phase 3: serving at full width, bf16
+# ----------------------------------------------------------------------
+def launch_counters():
+    from repro_torch.kernels import (flash_prefill, mamba2_ssd,
+                                     paged_decode, rwkv6_scan)
+    return {"flash_attention": flash_prefill.flash_attention,
+            "paged_attention": paged_decode.paged_attention,
+            "rwkv6_scan": rwkv6_scan.rwkv6_scan,
+            "mamba2_ssd": mamba2_ssd.mamba2_ssd}
+
+
+def expected_launches(cfg, prefills: int, steps: int):
+    """Launches of each kernel that serving ``cfg`` must make."""
+    L = cfg.num_layers
+    if cfg.family == "dense":
+        return {"flash_attention": L * prefills, "paged_attention": L * steps}
+    if cfg.family == "ssm":
+        return {"rwkv6_scan": L * prefills}
+    G = L // cfg.hybrid.shared_attn_every
+    return {"mamba2_ssd": L * prefills, "flash_attention": G * prefills}
+
+
+def serve_setups(torch, arch):
+    """Serve ``arch`` in the five setups with every launch count set to
+    0 just before and read just after; returns (launch counts, streams,
+    prompts, setup wall times)."""
     from repro_torch.configs import get_config
     from repro_torch.core import SETUPS
-    from repro_torch.kernels import flash_prefill, paged_decode
     from repro_torch.launch.serve import serve
     from repro_torch.obs.trace import Tracer
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    counters = launch_counters()
     streams, walls = {}, {}
-    flash_prefill.flash_attention.launches = 0
-    paged_decode.paged_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     for setup in SETUPS:
-        f0 = flash_prefill.flash_attention.launches
-        p0 = paged_decode.paged_attention.launches
+        before = {k: fn.launches for k, fn in counters.items()}
         tracer = Tracer()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = serve(ARCH, setup, batch_size=N_REQ, input_len=PROMPT,
+        res = serve(arch, setup, batch_size=N_REQ, input_len=PROMPT,
                     output_len=OUTPUT, real=True, device="cuda", seed=0,
                     tracer=tracer, verbose=False)
         torch.cuda.synchronize()
@@ -317,101 +514,139 @@ def phase_serving(torch):
                         if e.name == "prefill_done"])
         steps = len([e for e in tracer.spans()
                      if e.name in ("decode", "mixed")])
-        df = flash_prefill.flash_attention.launches - f0
-        dp = paged_decode.paged_attention.launches - p0
-        L = cfg.num_layers
-        log(f"serve {setup:8s}: wall {walls[setup]:.3f} s, {prefills} "
-            f"prefills, {steps} decode steps, flash launches {df}, paged "
-            f"launches {dp}, simulated median TTFT "
-            f"{res.metrics.median_ttft_s:.4f} s (TPU cost model)")
-        require(df == L * prefills and prefills >= N_REQ,
-                f"{setup}: {df} flash launches for {prefills} prefills")
-        require(dp == L * steps and steps >= OUTPUT - 1,
-                f"{setup}: {dp} paged launches for {steps} decode steps")
-        streams[setup] = [r.output_tokens for r in
-                          sorted(res.requests, key=lambda r: r.req_id)]
+        got = {k: fn.launches - before[k] for k, fn in counters.items()}
+        want = {k: 0 for k in counters}
+        want.update(expected_launches(cfg, prefills, steps))
+        log(f"serve {arch} {setup:8s}: wall {walls[setup]:.3f} s, "
+            f"{prefills} prefills, {steps} decode steps, launches {got}, "
+            f"simulated median TTFT {res.metrics.median_ttft_s:.4f} s "
+            f"(TPU cost model)")
+        require(prefills >= N_REQ and steps >= OUTPUT - 1 and got == want,
+                f"{arch} {setup}: launches {got}, want {want} for "
+                f"{prefills} prefills and {steps} decode steps")
+        reqs = sorted(res.requests, key=lambda r: r.req_id)
+        streams[setup] = [r.output_tokens for r in reqs]
+        prompts = [list(r.prompt_tokens) for r in reqs]
         require(all(len(t) == OUTPUT for t in streams[setup]),
-                f"{setup}: streams of lengths "
+                f"{arch} {setup}: streams of lengths "
                 f"{[len(t) for t in streams[setup]]}, want {OUTPUT}")
-        prompts = [list(r.prompt_tokens) for r in
-                   sorted(res.requests, key=lambda r: r.req_id)]
-    counted = {"flash_attention": flash_prefill.flash_attention.launches,
-               "paged_attention": paged_decode.paged_attention.launches}
-
+    counted = {k: fn.launches for k, fn in counters.items()}
     firsts = {s: [t[0] for t in streams[s]] for s in SETUPS}
     require(all(firsts[s] == firsts["co-1gpu"] for s in SETUPS),
-            f"first tokens differ across setups: {firsts}")
+            f"{arch}: first tokens differ across setups: {firsts}")
     same = sum(streams[s] == streams["co-1gpu"] for s in SETUPS)
-    log(f"bf16 first tokens agree in all setups; {same}/{len(SETUPS)} "
-        f"setups give co-1gpu's full streams")
+    log(f"{arch} bf16 first tokens agree in all setups; "
+        f"{same}/{len(SETUPS)} setups give co-1gpu's full streams")
+    return counted, streams["co-1gpu"], prompts, walls
 
-    # teacher-forced decode logits of request 0 (flash prefill + paged
-    # decode, bf16) against a dense plain-attention recompute. Both are
-    # held to the same recompute in f32 (same weights, TF32 off): the
-    # kernel path may stray from exact arithmetic by at most 3x what the
-    # plain bf16 recompute itself strays (bf16's own noise floor).
-    from repro_torch.models import get_model
-    model = get_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        "cuda")
-    outs = streams["co-1gpu"][0]
-    got = teacher_forced_logits(torch, model, params, cfg, prompts[0], outs)
-    seq = torch.tensor(prompts[0] + outs[:-1], device="cuda")[None]
-    plain = dense_plain_logits(torch, params, cfg, seq)[PROMPT:]
+
+def check_teacher_forced(torch, model, params, cfg, prompt, outs):
+    """Teacher-forced bf16 decode logits of request 0 against an f32
+    kernel-free recompute (same weights, TF32 off): the kernel path may
+    stray from exact arithmetic by at most 3x what the plain bf16
+    recompute itself strays (bf16's own noise floor)."""
+    plain_fn = PLAIN_LOGITS[cfg.family]
+    got = teacher_forced_logits(torch, model, params, cfg, prompt, outs)
+    seq = torch.tensor(prompt + outs[:-1], device="cuda")[None]
+    plain = plain_fn(torch, params, cfg, seq)[PROMPT:]
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
-    exact = dense_plain_logits(torch, _to_f32(params), cfg32, seq)[PROMPT:]
+    params32 = _to_f32(params)
+    exact = plain_fn(torch, params32, cfg32, seq)[PROMPT:]
+    del params32
     err, noise = max_err(torch, got, exact), max_err(torch, plain, exact)
     agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
-    log(f"teacher-forced bf16 decode logits: kernel path vs f32 recompute "
-        f"max_abs_err={err:.4e}, plain bf16 recompute vs f32 "
-        f"{noise:.4e} (ratio {err / noise:.2f}; max |logit| "
+    log(f"{cfg.name} teacher-forced bf16 decode logits: kernel path vs f32 "
+        f"recompute max_abs_err={err:.4e}, plain bf16 recompute vs f32 "
+        f"{noise:.4e} (ratio {err / max(noise, 1e-30):.2f}; max |logit| "
         f"{float(exact.abs().max()):.3f}); argmax agreement with the plain "
         f"bf16 recompute {agree:.3f}")
     require(err <= 3 * noise,
-            f"decode logits stray {err:.4e} from the f32 recompute, over "
-            f"3x the bf16 noise floor {noise:.4e}")
-    del got, plain, exact
+            f"{cfg.name}: decode logits stray {err:.4e} from the f32 "
+            f"recompute, over 3x the bf16 noise floor {noise:.4e}")
 
-    # component times (CUDA events) at the main path's shapes
-    from repro_torch.core import make_path
+
+def component_times(torch, model, params, cfg, prompts, outs):
+    """CUDA-event times of one prefill and one B=4 decode step at the
+    main path's shapes, and the store+fetch of one sequence's handoff
+    payload per medium (host clock), checked bit-exact."""
+    from repro_torch.core import make_path, random_workload
+    from repro_torch.core.transfer import map_tensors
     from repro_torch.launch.serve import device_kv
-    from repro_torch.core import random_workload
     toks = torch.tensor(prompts[0], device="cuda")[None]
-    prefill_ms = cuda_ms(torch, lambda: model.prefill(params,
-                                                      {"tokens": toks}),
-                         reps=5)
-    reqs = random_workload(N_REQ, input_len=PROMPT, output_len=OUTPUT,
-                           vocab_size=cfg.vocab_size, seed=0)
-    kv = device_kv(cfg, reqs, "cuda")
-    for r in reqs:
-        kv.pool.allocate(r.req_id, PROMPT + 16)
-    bt = torch.tensor([kv.pool.block_table(r.req_id) for r in reqs],
-                      dtype=torch.int32, device="cuda")
+    # as RealExecutor calls it: the recurrent families size their state
+    kw = {} if model.family == "dense" else {"s_max": PROMPT + OUTPUT + 2}
+    prefill_ms = cuda_ms(torch, lambda: model.prefill(
+        params, {"tokens": toks}, **kw), reps=5)
+    prefill_host_ms = host_ms(torch, lambda: model.prefill(
+        params, {"tokens": toks}, **kw), reps=3)
+    tok4 = torch.tensor(outs[:N_REQ], device="cuda")
     pos = torch.tensor([PROMPT + 3 * i for i in range(N_REQ)],
                        dtype=torch.int32, device="cuda")
-    tok4 = torch.tensor(outs[:N_REQ], device="cuda")
-    decode_ms = cuda_ms(torch, lambda: model.decode_step_paged(
-        params, tok4, kv.k, kv.v, bt, pos), reps=10)
-    decode_host_ms = host_ms(torch, lambda: model.decode_step_paged(
-        params, tok4, kv.k, kv.v, bt, pos), reps=10)
-    log(f"one prefill (1 x {PROMPT} tokens, {cfg.num_layers} layers): "
-        f"{prefill_ms:.3f} ms device; one decode step (B={N_REQ}, ctx "
-        f"~{PROMPT}): {decode_ms:.3f} ms device, {decode_host_ms:.3f} ms "
-        f"wall")
-    k_seq, v_seq = kv.gather_dense(reqs[0].req_id)
-    payload = (0, k_seq[:, :PROMPT].contiguous(),
-               v_seq[:, :PROMPT].contiguous(),
-               torch.zeros(1, cfg.vocab_size, device="cuda"))
-    nbytes = 2 * payload[1].numel() * payload[1].element_size()
+    if model.family == "dense":
+        reqs = random_workload(N_REQ, input_len=PROMPT, output_len=OUTPUT,
+                               vocab_size=cfg.vocab_size, seed=0)
+        kv = device_kv(cfg, reqs, "cuda")
+        for r in reqs:
+            kv.pool.allocate(r.req_id, PROMPT + 16)
+        bt = torch.tensor([kv.pool.block_table(r.req_id) for r in reqs],
+                          dtype=torch.int32, device="cuda")
+
+        def step():
+            return model.decode_step_paged(params, tok4, kv.k, kv.v, bt, pos)
+        _, cache = model.prefill(params, {"tokens": toks})
+        k, v = cache.k[:, 0].contiguous(), cache.v[:, 0].contiguous()
+        payload = (0, k, v, torch.zeros(1, cfg.vocab_size, device="cuda"))
+        what = "KV"
+    else:
+        logits, state = model.prefill(params, {"tokens": toks}, **kw)
+        joined = model.state_type(*(torch.cat([x] * N_REQ, dim=1)
+                                    for x in state))
+
+        def step():
+            return model.decode_step(params, tok4, joined, pos)
+        payload = (tuple(state), logits)
+        what = "state"
+    decode_ms = cuda_ms(torch, step, reps=10)
+    decode_host_ms = host_ms(torch, step, reps=10)
+    log(f"{cfg.name} one prefill (1 x {PROMPT} tokens, {cfg.num_layers} "
+        f"layers): {prefill_ms:.3f} ms CUDA-event window, "
+        f"{prefill_host_ms:.3f} ms wall; one decode step (B={N_REQ}, ctx "
+        f"~{PROMPT}): {decode_ms:.3f} ms CUDA-event window, "
+        f"{decode_host_ms:.3f} ms wall")
+    flat = []
+    map_tensors(flat.append, payload)
+    mb = nbytes_of(*flat) / 1e6
     for medium in ("ici", "host", "disk"):
         path = make_path(medium)
-        back = path.fetch(path.store(payload))
-        require(torch.equal(back[1], payload[1]) and
-                torch.equal(back[2], payload[2]),
-                f"{medium}: KV round trip is not bit-exact")
+        back = []
+        map_tensors(back.append, path.fetch(path.store(payload)))
+        require(len(back) == len(flat) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(flat, back)),
+            f"{cfg.name} {medium}: {what} round trip is not bit-exact")
         ms = host_ms(torch, lambda: path.fetch(path.store(payload)))
-        log(f"store+fetch {medium:4s}: {ms:.3f} ms for {nbytes / 1e6:.1f} MB "
-            f"(one sequence's KV, bit-exact)")
+        log(f"{cfg.name} store+fetch {medium:4s}: {ms:.3f} ms for "
+            f"{mb:.1f} MB (one sequence's {what}, bit-exact)")
+
+
+def phase_serving(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    counted = {k: 0 for k in launch_counters()}
+    walls = {}
+    for arch in ARCHS:
+        got, outs0, prompts, walls[arch] = serve_setups(torch, arch)
+        for k, n in got.items():
+            counted[k] += n
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")   # serve()'s weights: same seed
+        check_teacher_forced(torch, model, params, cfg, prompts[0], outs0[0])
+        component_times(torch, model, params, cfg, prompts, outs0[0])
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
     return counted, walls
 
 
@@ -425,38 +660,47 @@ def phase_parity(torch):
     from repro_torch.launch.serve import device_kv
     from repro_torch.models import get_model
 
-    cfg = get_config(ARCH).replace(num_layers=4, param_dtype="float32",
-                                   compute_dtype="float32")
-    model = get_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(1),
-                        "cuda")
-    streams = {}
-    for setup in SETUPS:
-        reqs = random_workload(N_REQ, input_len=PROMPT, output_len=OUTPUT,
-                               vocab_size=cfg.vocab_size, seed=1)
-        prompt0 = list(reqs[0].prompt_tokens)
-        kv = device_kv(cfg, reqs, "cuda")
-        res = make_cluster(setup, cfg, executor_factory=lambda path: (
-            RealExecutor(model, params, kv, transfer_path=path))).run(reqs)
-        streams[setup] = [r.output_tokens for r in
-                          sorted(res.requests, key=lambda r: r.req_id)]
-        require(all(len(t) == OUTPUT for t in streams[setup]),
-                f"f32 {setup}: short streams")
-    for setup in SETUPS:
-        require(streams[setup] == streams["co-1gpu"],
-                f"f32 parity: {setup} diverged from co-1gpu")
-    log(f"f32 parity: identical streams in all {len(SETUPS)} setups "
-        f"({N_REQ} x {OUTPUT} tokens, {cfg.num_layers} layers)")
-    outs = streams["co-1gpu"][0]
-    got = teacher_forced_logits(torch, model, params, cfg, prompt0, outs)
-    seq = torch.tensor(prompt0 + outs[:-1], device="cuda")[None]
-    want = dense_plain_logits(torch, params, cfg, seq)[PROMPT:]
-    err = max_err(torch, got, want)
-    log(f"teacher-forced f32 decode logits vs dense plain recompute: "
-        f"max_abs_err={err:.4e} (max |logit| "
-        f"{float(want.abs().max()):.3f})")
-    require(within(torch, got, want, 1e-3),
-            f"f32 decode logits differ from the recompute by {err:.4e}")
+    for arch in ARCHS:
+        cfg = get_config(arch).replace(num_layers=PARITY_LAYERS[arch],
+                                       param_dtype="float32",
+                                       compute_dtype="float32")
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+        streams = {}
+        for setup in SETUPS:
+            reqs = random_workload(N_REQ, input_len=PROMPT,
+                                   output_len=OUTPUT,
+                                   vocab_size=cfg.vocab_size, seed=1)
+            prompt0 = list(reqs[0].prompt_tokens)
+            kv = (device_kv(cfg, reqs, "cuda") if cfg.family == "dense"
+                  else None)
+            res = make_cluster(setup, cfg, executor_factory=lambda path: (
+                RealExecutor(model, params, kv, transfer_path=path))).run(
+                    reqs)
+            streams[setup] = [r.output_tokens for r in
+                              sorted(res.requests, key=lambda r: r.req_id)]
+            require(all(len(t) == OUTPUT for t in streams[setup]),
+                    f"{arch} f32 {setup}: short streams")
+        for setup in SETUPS:
+            require(streams[setup] == streams["co-1gpu"],
+                    f"{arch} f32 parity: {setup} diverged from co-1gpu")
+        log(f"{arch} f32 parity: identical streams in all {len(SETUPS)} "
+            f"setups ({N_REQ} x {OUTPUT} tokens, {cfg.num_layers} layers)")
+        outs = streams["co-1gpu"][0]
+        got = teacher_forced_logits(torch, model, params, cfg, prompt0, outs)
+        seq = torch.tensor(prompt0 + outs[:-1], device="cuda")[None]
+        want = PLAIN_LOGITS[cfg.family](torch, params, cfg, seq)[PROMPT:]
+        err = max_err(torch, got, want)
+        log(f"{arch} teacher-forced f32 decode logits vs kernel-free "
+            f"recompute: max_abs_err={err:.4e} (max |logit| "
+            f"{float(want.abs().max()):.3f})")
+        require(within(torch, got, want, 1e-3),
+                f"{arch} f32 decode logits differ from the recompute by "
+                f"{err:.4e}")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -492,15 +736,25 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     rows = phase_kernels(torch)
+    log(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counted, walls = phase_serving(torch)
+    log(f"phase 3 (serving): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_parity(torch)
+    log(f"phase 4 (parity): {time.perf_counter() - t0:.1f} s")
 
     info = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                             "src/repro/kernels/flash_prefill.py:35"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                             "src/repro/kernels/paged_decode.py:34"),
+        "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan.py:31"),
+        "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+                       "src/repro/kernels/mamba2_ssd.py:32"),
     }
     kernels = []
     for name, (source, replaces) in info.items():

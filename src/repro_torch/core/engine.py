@@ -709,19 +709,35 @@ class Engine:
 class RealExecutor:
     """Executes prefill/decode with an actual model; greedy sampling.
 
-    Every executor on a device shares that device's ``DevicePagedKV``:
-    a sequence's KV lives in physical pages keyed by its seq id, prefill
-    writes them, decode attends over them through the paged kernel, and
-    ``release`` returns them. ``seq.state`` is the handle
-    ``(seq_id, ctx)``; the transferred payload is
-    ``(seq_id, k [L, ctx, KV, hd], v, logits)``.
+    The dense family decodes from paged KV: every executor on a device
+    shares that device's ``DevicePagedKV``, a sequence's KV lives in
+    physical pages keyed by its seq id, prefill writes them, decode
+    attends over them through the paged kernel, and ``release`` returns
+    them. ``seq.state`` is the handle ``(seq_id, ctx)``; the transferred
+    payload is ``(seq_id, k [L, ctx, KV, hd], v, logits)``.
+
+    The recurrent families (ssm, hybrid) carry ``seq.state`` per
+    sequence, as the reference's executor does, and take ``kv=None``:
+    ``seq.state`` is the model's decode state for one sequence (batch
+    axis 1), prefilled with room for ``prompt + output + 2`` tokens; the
+    payload is ``(state as a plain tuple, logits)`` and the decode side
+    rebuilds the NamedTuple; ``decode_batch`` concatenates the states on
+    the batch axis and splits them back; ``release`` drops the state.
+    Like the reference, this needs equal-length requests for zamba2,
+    whose shared-attention cache is dense and sized per request:
+    ``random_workload`` gives them.
     """
 
-    def __init__(self, model, params, kv, transfer_path=None):
+    def __init__(self, model, params, kv=None, transfer_path=None):
         self.model = model
         self.params = params
         self.kv = kv
         self.path = transfer_path
+        self.paged = model.family == "dense"
+        if self.paged and kv is None:
+            raise ValueError("the dense family decodes from a DevicePagedKV")
+        self.device = (kv.device if kv is not None
+                       else params["embed"]["embedding"].device)
 
     def _context_tokens(self, seq: EngineSeq) -> np.ndarray:
         """prompt + already-emitted tokens (recompute path needs both)."""
@@ -734,7 +750,12 @@ class RealExecutor:
     def prefill(self, seq: EngineSeq):
         import torch
         toks = torch.as_tensor(self._context_tokens(seq),
-                               device=self.kv.device)[None, :]
+                               device=self.device)[None, :]
+        if not self.paged:
+            s_max = seq.req.prompt_len + seq.req.output_len + 2
+            logits, state = self.model.prefill(self.params, {"tokens": toks},
+                                               s_max=s_max)
+            return state, logits, int(torch.argmax(logits[0]))
         logits, cache = self.model.prefill(self.params, {"tokens": toks})
         S = toks.shape[1]
         assert not self.kv.pool.has_seq(seq.seq_id), "pages not released"
@@ -744,14 +765,20 @@ class RealExecutor:
         return (seq.seq_id, S), logits, next_token
 
     def store(self, seq: EngineSeq):
-        k, v = self.kv.gather_dense(seq.seq_id)
-        payload = (seq.seq_id, k, v, seq.last_logits)
+        if self.paged:
+            k, v = self.kv.gather_dense(seq.seq_id)
+            payload = (seq.seq_id, k, v, seq.last_logits)
+        else:
+            payload = (tuple(seq.state), seq.last_logits)
         if self.path is None:
             return payload
         return self.path.store(payload)
 
     def fetch(self, handle):
         payload = handle if self.path is None else self.path.fetch(handle)
+        if not self.paged:
+            fields, logits = payload
+            return self.model.state_type(*fields), logits
         seq_id, k, v, logits = payload
         assert not self.kv.pool.has_seq(seq_id), "pages not released"
         self.kv.pool.allocate(seq_id, k.shape[1])
@@ -759,11 +786,30 @@ class RealExecutor:
         return (seq_id, k.shape[1]), logits
 
     def release(self, seq: EngineSeq) -> None:
-        self.kv.free(seq.seq_id)
+        if self.paged:
+            self.kv.free(seq.seq_id)
+        else:
+            seq.state = None
 
     def decode_batch(self, batch: List[EngineSeq]) -> None:
         import torch
-        pool, dev = self.kv.pool, self.kv.device
+        dev = self.device
+        tokens = torch.tensor([s.next_token for s in batch],
+                              dtype=torch.int64, device=dev)
+        pos = torch.tensor([s.ctx for s in batch], dtype=torch.int32,
+                           device=dev)
+        if not self.paged:
+            joined = self.model.state_type(*(
+                torch.cat(xs, dim=1) for xs in zip(*(s.state for s in batch))))
+            logits, new_state = self.model.decode_step(
+                self.params, tokens, joined, pos)
+            nxt = torch.argmax(logits, dim=-1).tolist()
+            for i, (seq, tok) in enumerate(zip(batch, nxt)):
+                seq.state = self.model.state_type(
+                    *(x[:, i:i + 1] for x in new_state))
+                seq.next_token = int(tok)
+            return
+        pool = self.kv.pool
         for s in batch:
             pool.allocate(s.seq_id, 1)       # room for the new token
         tables = [pool.block_table(s.seq_id) for s in batch]
@@ -771,10 +817,6 @@ class RealExecutor:
         block_table = torch.tensor(
             [t + [0] * (max_pages - len(t)) for t in tables],
             dtype=torch.int32, device=dev)
-        tokens = torch.tensor([s.next_token for s in batch],
-                              dtype=torch.int64, device=dev)
-        pos = torch.tensor([s.ctx for s in batch], dtype=torch.int32,
-                           device=dev)
         logits = self.model.decode_step_paged(
             self.params, tokens, self.kv.k, self.kv.v, block_table, pos)
         nxt = torch.argmax(logits, dim=-1).tolist()

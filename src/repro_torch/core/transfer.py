@@ -20,7 +20,10 @@ into decode HBM and the fetch is free.
 ``store()``/``fetch()`` also REALLY move the state payload (a nested
 tuple of ints and tensors) in real mode: a device copy, pinned host
 DRAM, or a file written with ``torch.save`` and fsync'd. Round trips are
-bit-exact, bf16 included: tensors never pass through numpy.
+bit-exact, bf16 included: tensors never pass through numpy. The disk
+path loads with ``weights_only=True``, which refuses a pickled class:
+the executor hands a model's NamedTuple state over as a plain tuple and
+rebuilds it on the decode side.
 """
 from __future__ import annotations
 
@@ -36,9 +39,12 @@ from .costs import HostSpec
 
 def map_tensors(fn: Callable[[torch.Tensor], Any], obj: Any) -> Any:
     """Apply ``fn`` to every tensor in a nested tuple/list/dict payload;
-    other leaves (seq ids) pass through."""
+    other leaves (seq ids) pass through. A NamedTuple (a model's decode
+    state) comes back as the same NamedTuple."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(fn, x) for x in obj))
     if isinstance(obj, (tuple, list)):
         return type(obj)(map_tensors(fn, x) for x in obj)
     if isinstance(obj, dict):

@@ -1,6 +1,8 @@
 // Flash attention for prefill: causal, sliding-window or non-causal GQA
 // attention with an online softmax, q [B,S,H,hd], k/v [B,T,KV,hd] ->
-// o [B,S,H,hd], f32 or bf16 in, f32 accumulation.
+// o [B,S,H,hd], f32 or bf16 in, f32 accumulation. Head dims 32, 64, 80
+// (zamba2's shared block) and 128: every tile walks hd in steps of 4
+// (f32), 8 (staging) or 16 (WMMA), all of which divide 80.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill.py,
 // _flash_kernel (called through flash_attention).
@@ -219,6 +221,7 @@ int dispatch_f32(int hd, const Params& p, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<32>(p, stream);
     case 64: return launch<64>(p, stream);
+    case 80: return launch<80>(p, stream);
     case 128: return launch<128>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -418,6 +421,7 @@ int dispatch_bf16(int hd, const Params& p, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch_tc<32>(p, stream);
     case 64: return launch_tc<64>(p, stream);
+    case 80: return launch_tc<80>(p, stream);
     case 128: return launch_tc<128>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -17,7 +17,7 @@ import torch
 from . import _build
 from .ref import flash_attention_ref as plain
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p

@@ -12,13 +12,16 @@ kernel: an explicit backend that does not match the device raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import flash_prefill as _flash
+from . import mamba2_ssd as _ssd
 from . import paged_decode as _paged
 from . import ref
+from . import rwkv6_scan as _rwkv
 
 BACKENDS = ("auto", "ref", "cuda")
 
@@ -50,3 +53,76 @@ def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
         return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                        seq_lens)
     return _paged.paged_attention(q, k_pages, v_pages, block_table, seq_lens)
+
+
+# ----------------------------------------------------------------------
+# recurrent scans (prefill) and their single-token steps (decode)
+# ----------------------------------------------------------------------
+def _pad_seq(x: torch.Tensor, chunk: int, value: float = 0.0) -> torch.Tensor:
+    """Pad axis 1 up to a multiple of ``chunk`` with ``value``."""
+    pad = (-x.shape[1]) % chunk
+    if pad == 0:
+        return x
+    return F.pad(x, [0, 0] * (x.dim() - 2) + [0, pad], value=value)
+
+
+def rwkv6(r, k, v, w, u, state, *, chunk: int = 64,
+          backend: Optional[str] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's padding contract on both backends: T is padded to
+    a multiple of ``chunk`` with w=1, k=0 (and r=v=0), which leaves the
+    state as it is, and y is cut back to T. The kernel itself takes any
+    T, so on the main path (T a multiple of the chunk) nothing is
+    copied."""
+    b = resolve_backend(backend, r)
+    if state is None:
+        B, _, NH, hd = r.shape
+        state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    T = r.shape[1]
+    rp, kp, vp = (_pad_seq(x, chunk) for x in (r, k, v))
+    wp = _pad_seq(w, chunk, value=1.0)
+    scan = ref.rwkv6_scan_ref if b == "ref" else _rwkv.rwkv6_scan
+    y, s = scan(rp, kp, vp, wp, u, state)
+    return y[:, :T], s
+
+
+def rwkv6_step(r, k, v, w, u, state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrent step (decode), plain torch as in the
+    reference. r..w: [B, NH, hd]; state: [B, NH, hd, hd] f32."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    y = torch.einsum("bhc,bhcj->bhj", rf, state)
+    y = y + (rf * (u.float()[None] * kf)).sum(-1, keepdim=True) * vf
+    state = wf[..., :, None] * state + kf[..., :, None] * vf[..., None, :]
+    return y.to(r.dtype), state
+
+
+def mamba2(x, dt, A, B_mat, C_mat, D, state, *, chunk: int = 128,
+           backend: Optional[str] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Padding contract as for ``rwkv6``: dt=0 pads are a no-op (decay
+    1, no input)."""
+    b = resolve_backend(backend, x)
+    if state is None:
+        B, _, NH, P = x.shape
+        state = torch.zeros((B, NH, B_mat.shape[-1], P),
+                            dtype=torch.float32, device=x.device)
+    T = x.shape[1]
+    xp, dtp, Bp, Cp = (_pad_seq(t, chunk) for t in (x, dt, B_mat, C_mat))
+    scan = ref.mamba2_ssd_ref if b == "ref" else _ssd.mamba2_ssd
+    y, s = scan(xp, dtp, A, Bp, Cp, D, state)
+    return y[:, :T], s
+
+
+def mamba2_step(x, dt, A, B_mat, C_mat, D, state
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSM step (decode), plain torch as in the reference.
+    x: [B, NH, P]; dt: [B, NH]; B_mat/C_mat: [B, N]; state: [B, NH, N, P]."""
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(A.float()[None] * dtf)                  # [B, NH]
+    state = (decay[..., None, None] * state
+             + B_mat.float()[:, None, :, None]
+             * (dtf[..., None] * xf)[:, :, None, :])
+    y = torch.einsum("bhnp,bn->bhp", state, C_mat.float())
+    y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), state

@@ -16,10 +16,11 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_prefill import HEAD_DIMS, _DTYPES, check_aligned
+from .flash_prefill import _DTYPES, check_aligned
 from .ref import paged_attention_ref as plain
 
-MAX_GROUP = 8          # query heads per kv head the kernel holds
+HEAD_DIMS = (32, 64, 128)   # a multiple of 32: each lane holds hd/32 dims
+MAX_GROUP = 8               # query heads per kv head the kernel holds
 
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_i, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,

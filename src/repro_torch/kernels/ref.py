@@ -1,4 +1,4 @@
-"""Plain torch versions of the attention kernels.
+"""Plain torch versions of the kernels.
 
 They are the correctness references (the kernel wrappers compare against
 them on the card) and the CPU execution path: a wrapper handed a CPU
@@ -7,6 +7,7 @@ tensor runs these. Same signatures and layouts as ``repro.kernels.ref``.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,3 +63,66 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v_seq.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RWKV6 recurrence with a per-channel decay.
+
+    r, k, v, w: [B, T, NH, hd] (w in (0, 1), already exp(-exp(.)));
+    u: [NH, hd] bonus; state: [B, NH, hd, hd] (key x value), default
+    zeros. Returns (y [B, T, NH, hd] in r's dtype, final state in f32).
+
+      y_t = S_t^T r_t + (r_t . (u * k_t)) v_t
+      S_{t+1} = diag(w_t) S_t + k_t v_t^T
+    """
+    B, T, NH, hd = r.shape
+    S = (torch.zeros((B, NH, hd, hd), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]  # [B,NH,hd]
+        y = torch.einsum("bhc,bhcj->bhj", rt, S)
+        y = y + (rt * (uf[None] * kt)).sum(-1, keepdim=True) * vt
+        S = wt[..., :, None] * S + kt[..., :, None] * vt[..., None, :]
+        ys.append(y)
+    y = torch.stack(ys, 1) if ys else rf.new_zeros((B, 0, NH, hd))
+    return y.to(r.dtype), S
+
+
+def mamba2_ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B_mat: torch.Tensor, C_mat: torch.Tensor,
+                   D: Optional[torch.Tensor] = None,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential Mamba2 recurrence with a scalar decay per head.
+
+    x: [B, T, NH, P]; dt: [B, T, NH] (> 0); A: [NH] (< 0; decay
+    exp(A dt)); B_mat, C_mat: [B, T, N] (one group, shared by the heads);
+    D: [NH] skip, optional; state: [B, NH, N, P], default zeros.
+    Returns (y [B, T, NH, P] in x's dtype, final state in f32).
+
+      S_t = exp(A dt_t) S_{t-1} + B_t (dt_t x_t)^T
+      y_t = S_t^T C_t + D x_t
+    """
+    Bsz, T, NH, P = x.shape
+    N = B_mat.shape[-1]
+    S = (torch.zeros((Bsz, NH, N, P), dtype=torch.float32, device=x.device)
+         if state is None else state.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B_mat.float(), C_mat.float()
+    Af = A.float()
+    ys = []
+    for t in range(T):
+        xt, dtt, Bt, Ct = xf[:, t], dtf[:, t], Bf[:, t], Cf[:, t]
+        decay = torch.exp(Af[None] * dtt)                       # [B, NH]
+        S = (decay[..., None, None] * S
+             + Bt[:, None, :, None] * (dtt[..., None] * xt)[:, :, None, :])
+        ys.append(torch.einsum("bhnp,bn->bhp", S, Ct))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((Bsz, 0, NH, P))
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), S

@@ -1,0 +1,92 @@
+"""RWKV6 time-mix scan for prefill: the CUDA kernel's wrapper and its
+plain torch version.
+
+rwkv6-3b is attention-free: each layer's prefill runs this recurrence
+over the prompt, and its final state is the whole handoff to decode (the
+paper's degenerate-transfer case). The kernel (``csrc/rwkv6_scan.cu``)
+replaces the Pallas TPU kernel ``repro/kernels/rwkv6_scan.py::
+_rwkv6_kernel``; its header says what bounds it on the H100 and how it is
+laid out. It scans token by token and masks its ragged tail, so it takes
+any T. The wrapper takes the plain version only for CPU tensors; for a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .flash_prefill import _DTYPES
+from .ref import rwkv6_scan_ref as plain
+
+HEAD_DIMS = (32, 64, 128)
+
+_i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_ARGTYPES = [_i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+             *[_ll] * 12, _p]
+
+
+def _check(r, k, v, w, u, state):
+    if r.dim() != 4 or not (r.shape == k.shape == v.shape == w.shape):
+        raise ValueError(f"rwkv6_scan: r, k, v, w [B,T,NH,hd] of one shape; "
+                         f"got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(w.shape)}")
+    B, _, NH, hd = r.shape
+    if tuple(u.shape) != (NH, hd):
+        raise ValueError(f"rwkv6_scan: u [NH,hd] = {(NH, hd)}, got "
+                         f"{tuple(u.shape)}")
+    if tuple(state.shape) != (B, NH, hd, hd):
+        raise ValueError(f"rwkv6_scan: state [B,NH,hd,hd] = "
+                         f"{(B, NH, hd, hd)}, got {tuple(state.shape)}")
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPES:
+        raise TypeError(f"rwkv6_scan: float32 or bfloat16 r/k/v of one "
+                        f"dtype, got {r.dtype}, {k.dtype}, {v.dtype}")
+    if w.dtype != torch.float32 or state.dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan: w and state must be float32, got "
+                        f"{w.dtype}, {state.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head dim {hd} is not built "
+                         f"(built: {HEAD_DIMS})")
+    if len({t.device for t in (r, k, v, w, u, state)}) != 1:
+        raise ValueError("rwkv6_scan: inputs on different devices")
+    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
+        raise ValueError("rwkv6_scan: r, k, v, w need a unit-stride last dim")
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w: [B, T, NH, hd]; u: [NH, hd]; state: [B, NH, hd, hd]
+    f32 (default zeros) -> (y [B, T, NH, hd] in r's dtype, final state
+    f32). On the card w must be f32 (the model's decay is)."""
+    if r.device.type == "cpu":
+        return plain(r, k, v, w, u, state)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
+    B, T, NH, hd = r.shape
+    if state is None:
+        state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    _check(r, k, v, w, u, state)
+    state = state.contiguous()
+    u32 = u.float().contiguous()           # [NH, hd]: a few KB
+    y = torch.empty((B, T, NH, hd), dtype=r.dtype, device=r.device)
+    s_out = torch.empty_like(state)
+    if B * NH == 0:
+        return y, state.clone()
+    launch = _build.launcher("rwkv6_scan", "rwkv6_scan_fwd", _ARGTYPES)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch(_DTYPES[r.dtype], hd, r.data_ptr(), k.data_ptr(),
+               v.data_ptr(), w.data_ptr(), u32.data_ptr(), state.data_ptr(),
+               y.data_ptr(), s_out.data_ptr(), B, T, NH,
+               *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *w.stride()[:3], stream)
+    rwkv6_scan.launches += 1
+    return y, s_out
+
+
+rwkv6_scan.launches = 0

@@ -3,11 +3,13 @@
 ``--real`` runs the named architecture at full width, with seeded random
 weights in the config's ``param_dtype``, on ``--device`` (default
 ``cuda``; it raises when no card is present). Prefill goes through the
-flash-attention kernel, the KV cache crosses the setup's transfer medium
-for real, and decode goes through the paged-attention kernel over one
-device-wide page pool. ``--smoke`` runs the reduced config instead, with
-prompts clamped to 64 tokens and outputs to 8, as the reference's real
-mode does.
+family's kernels (flash attention; the rwkv6 scan for rwkv6-3b; the
+Mamba2 SSD scan and flash attention for zamba2-2.7b), the prefill state
+crosses the setup's transfer medium for real, and decode goes through
+the paged-attention kernel over one device-wide page pool (dense
+family) or steps the recurrent state (ssm, hybrid). ``--smoke`` runs the
+reduced config instead, with prompts clamped to 64 tokens and outputs to
+8, as the reference's real mode does.
 
 The printed TTFT/TPOT/energy figures come from the simulator's cost
 model, whose constants describe a TPU: they are simulated, not measured
@@ -17,6 +19,8 @@ on the card. Simulation mode (no ``--real``) comes with the port of
   PYTHONPATH=src python -m repro_torch.launch.serve --real --setup dis-ici
   PYTHONPATH=src python -m repro_torch.launch.serve --real --smoke \\
       --device cpu --setup dis-host
+  PYTHONPATH=src python -m repro_torch.launch.serve --real --smoke \\
+      --device cpu --arch rwkv6-3b --setup dis-disk
 """
 from __future__ import annotations
 
@@ -69,7 +73,9 @@ def serve(arch: str, setup: str, *, batch_size: int = 16,
     reqs = random_workload(batch_size, input_len=input_len,
                            output_len=output_len,
                            vocab_size=cfg.vocab_size, seed=seed)
-    kv = device_kv(cfg, reqs, device)
+    # paged KV for the dense family; the recurrent families carry their
+    # own per-sequence state
+    kv = device_kv(cfg, reqs, device) if cfg.family == "dense" else None
 
     def executor_factory(path):
         return RealExecutor(model, params, kv, transfer_path=path)

@@ -57,6 +57,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * scale.float()).to(x.dtype)
 
 
+def init_rms_norm(d: int, device, dtype) -> torch.Tensor:
+    return torch.ones(d, device=device, dtype=dtype)
+
+
 # ----------------------------------------------------------------------
 # Rotary position embeddings
 # ----------------------------------------------------------------------

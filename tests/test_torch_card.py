@@ -1,7 +1,6 @@
 """The CUDA kernels on the card: each against its plain torch version,
-and the reduced model's prefill + paged decode on the card against the
-same on the CPU. They skip without a card (the kernels have no CPU
-mode). This file imports neither jax nor the reference, so it also runs
+and the reduced models' prefill + decode on the card against the same on
+the CPU. They skip without a card (the kernels have no CPU mode). This file imports neither jax nor the reference, so it also runs
 on a machine that has only torch:
 
   python -m pytest --noconftest -q tests/test_torch_card.py
@@ -12,7 +11,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import DevicePagedKV, PagedKVPool  # noqa: E402
-from repro_torch.kernels import flash_prefill, paged_decode, ref  # noqa: E402
+from repro_torch.kernels import (flash_prefill, mamba2_ssd, paged_decode,  # noqa: E402
+                                 ref, rwkv6_scan)
 from repro_torch.models import get_model  # noqa: E402
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -30,6 +30,7 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,T,H,KV,hd,window", [
     (200, 200, 8, 2, 64, 0), (77, 333, 4, 4, 32, 0), (300, 300, 6, 2, 128, 40),
+    (130, 130, 4, 4, 80, 0), (96, 160, 4, 4, 80, 24),
 ])
 def test_flash_kernel_matches_plain(card, dtype, S, T, H, KV, hd, window):
     q = torch.randn(2, S, H, hd, generator=card, device="cuda").to(dtype)
@@ -64,8 +65,8 @@ def test_paged_kernel_matches_plain(card, dtype, H, KV, hd, page):
 
 
 def test_wrappers_reject_bad_inputs(card):
-    q = torch.zeros(1, 8, 2, 80, device="cuda")
-    with pytest.raises(ValueError, match="head dim 80"):
+    q = torch.zeros(1, 8, 2, 96, device="cuda")
+    with pytest.raises(ValueError, match="head dim 96"):
         flash_prefill.flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -80,6 +81,88 @@ def test_wrappers_reject_bad_inputs(card):
             torch.zeros(4, 16, 1, 64, device="cuda"),
             torch.zeros(1, 2, dtype=torch.int32, device="cuda"),
             torch.ones(1, dtype=torch.int32, device="cuda"))
+    r = torch.zeros(1, 8, 2, 64, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        rwkv6_scan.rwkv6_scan(r, r, r, r.bfloat16(), r[0, 0])
+    x = torch.zeros(1, 8, 2, 24, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mamba2_ssd.mamba2_ssd(x, torch.ones(1, 8, 2, device="cuda"),
+                              -torch.ones(2, device="cuda"),
+                              torch.zeros(1, 8, 16, device="cuda"),
+                              torch.zeros(1, 8, 16, device="cuda"))
+
+
+def _rand(card, shape, lo=None, hi=None):
+    x = torch.randn(shape, generator=card, device="cuda")
+    if lo is not None:
+        x = lo + (hi - lo) * torch.rand(shape, generator=card, device="cuda")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,NH,hd,w_lo,w_hi", [
+    (1, 1024, 40, 64, 0.45, 0.95),    # rwkv6-3b's prefill shape
+    (4, 77, 3, 32, 1e-6, 1e-3),       # ragged T, decays near 0
+    (2, 130, 2, 128, 0.999, 1.0),     # decays near 1
+])
+def test_rwkv6_kernel_matches_plain(card, dtype, B, T, NH, hd, w_lo, w_hi):
+    r, k, v = (_rand(card, (B, T, NH, hd)).to(dtype) for _ in range(3))
+    w = _rand(card, (B, T, NH, hd), w_lo, w_hi)
+    u = 0.1 * _rand(card, (NH, hd))
+    s0 = _rand(card, (B, NH, hd, hd))
+    before = rwkv6_scan.rwkv6_scan.launches
+    y, s = rwkv6_scan.rwkv6_scan(r, k, v, w, u, s0)
+    y_ref, s_ref = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    assert rwkv6_scan.rwkv6_scan.launches == before + 1
+    tol = 5 * TOL[dtype]      # y sums hd products of O(sqrt(T)) state
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, s_ref, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,NH,P,N", [
+    (1, 1024, 80, 64, 64),            # zamba2's prefill shape
+    (2, 45, 3, 32, 16),               # ragged T
+    (1, 96, 2, 16, 128),
+])
+def test_mamba2_kernel_matches_plain(card, dtype, B, T, NH, P, N):
+    x = _rand(card, (B, T, NH, P)).to(dtype)
+    dt = torch.nn.functional.softplus(_rand(card, (B, T, NH)) - 2.0)
+    A = -torch.linspace(1.0, 16.0, NH, device="cuda")
+    Bm, Cm = (_rand(card, (B, T, N)).to(dtype) for _ in range(2))
+    D = _rand(card, (NH,))
+    s0 = _rand(card, (B, NH, N, P))
+    y, s = mamba2_ssd.mamba2_ssd(x, dt, A, Bm, Cm, D, s0)
+    y_ref, s_ref = ref.mamba2_ssd_ref(x, dt, A, Bm, Cm, D, s0)
+    tol = 5 * TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, s_ref, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_recurrent_model_prefill_and_decode_match_cpu(card, arch):
+    cfg = configs.reduce_for_smoke(configs.REGISTRY[arch])
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=card,
+                         device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        first, state = model.prefill(p, {"tokens": toks.to(dev)}, s_max=44)
+        pos = torch.tensor([40, 40], dtype=torch.int32, device=dev)
+        nxt, _ = model.decode_step(p, toks[:, -1].to(dev), state, pos)
+        out[dev] = (first.cpu(), nxt.cpu(), *(x.cpu() for x in state))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def test_model_prefill_and_paged_decode_match_cpu(card):

@@ -1,5 +1,6 @@
 """``repro_torch`` stands alone: importing every one of its modules pulls
-in neither jax nor the reference package."""
+in neither jax nor the reference package, and neither its sources nor
+``chip_smoke.py`` (which drives it on the card) import them."""
 import os
 import subprocess
 import sys
@@ -9,7 +10,8 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 
 PROBE = """
 import importlib, pkgutil, sys
@@ -36,11 +38,11 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_port_sources_name_neither_jax_nor_reference():
-    pkg = SRC / "repro_torch"
-    for path in pkg.rglob("*.py"):
+    paths = [*(SRC / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
-                    f"{path.relative_to(SRC)}: {s}"
+                    f"{path.relative_to(ROOT)}: {s}"

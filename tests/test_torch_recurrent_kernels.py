@@ -1,0 +1,273 @@
+"""The port's recurrent scans against the reference's: ``ops.rwkv6`` and
+``ops.mamba2`` (plain torch on the CPU) against the Pallas kernels in
+interpret mode and the jnp oracles, on the grid of
+tests/test_kernels.py plus ragged T (the padding contract), carried
+states, the single-token steps, and decays near 0 and near 1; the
+wrappers' input checks and the dispatch rules. The CUDA kernels
+themselves run only on the card (tests/test_torch_card.py).
+
+Tolerances: 2e-4 in f32 against the jnp oracles, which compute the same
+sequential recurrence; against the Pallas kernels the reference's own
+(5e-4 for rwkv6, 1e-3 for mamba2, tests/test_kernels.py), since their
+chunked form sums in another order; 2e-2 in bf16."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as r_ops  # noqa: E402
+from repro.kernels import ref as r_ref  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as t_ssd  # noqa: E402
+from repro_torch.kernels import ops as t_ops  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as t_rwkv  # noqa: E402
+
+TOL = 2e-4
+PALLAS_TOL = {"rwkv6": 5e-4, "mamba2": 1e-3}
+
+
+def _pair(x, dtype="float32"):
+    """The same values in both frameworks (bf16 rounds identically)."""
+    x = np.asarray(x, np.float32)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def _close(port, want, tol=TOL):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def _rwkv_inputs(seed, B, T, NH, hd, w_range=None, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, NH, hd)) for _ in range(3))
+    if w_range is None:          # tests/test_kernels.py's decays
+        w = _sigmoid(rng.standard_normal((B, T, NH, hd))) * 0.5 + 0.45
+    else:
+        w = rng.uniform(*w_range, size=(B, T, NH, hd))
+    u = rng.standard_normal((NH, hd)) * 0.1
+    pairs = [_pair(x, dtype) for x in (r, k, v)]
+    pairs += [_pair(w), _pair(u)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _mamba_inputs(seed, B, T, NH, P, N, dt_shift=0.0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, NH, P))
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, NH)) + dt_shift))
+    A = -np.abs(rng.standard_normal(NH))
+    Bm, Cm = (rng.standard_normal((B, T, N)) for _ in range(2))
+    D = rng.standard_normal(NH) * 0.1
+    pairs = [_pair(a) for a in (x, dt, A, Bm, Cm, D)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+# ----------------------------------------------------------------------
+# rwkv6
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("B,T,NH,hd,chunk", [
+    (1, 64, 2, 32, 16),
+    (2, 96, 4, 64, 32),
+    (1, 128, 1, 64, 64),
+    (2, 50, 3, 32, 16),          # T not a chunk multiple: padded
+    (1, 70, 2, 64, 64),          # padded past one chunk
+])
+def test_rwkv6_plain_vs_reference(B, T, NH, hd, chunk):
+    jx, tx = _rwkv_inputs(B * 100 + T + hd, B, T, NH, hd)
+    y, s = t_ops.rwkv6(*tx, None, chunk=chunk)
+    assert y.shape == (B, T, NH, hd) and s.dtype == torch.float32
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx)
+    _close(y, y_ref)
+    _close(s, s_ref)
+    y_p, s_p = r_ops.rwkv6(*jx, None, chunk=chunk,
+                           backend="pallas_interpret")
+    _close(y, y_p, PALLAS_TOL["rwkv6"])
+    _close(s, s_p, PALLAS_TOL["rwkv6"])
+
+
+@pytest.mark.parametrize("w_range", [(1e-6, 1e-3), (0.999, 1.0)],
+                         ids=["decay-near-0", "decay-near-1"])
+def test_rwkv6_extreme_decays(w_range):
+    jx, tx = _rwkv_inputs(11, 2, 48, 2, 32, w_range)
+    y, s = t_ops.rwkv6(*tx, None, chunk=16)
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx)
+    _close(y, y_ref)
+    _close(s, s_ref)
+    y_p, s_p = r_ops.rwkv6(*jx, None, chunk=16, backend="pallas_interpret")
+    _close(y, y_p, PALLAS_TOL["rwkv6"])
+    _close(s, s_p, PALLAS_TOL["rwkv6"])
+
+
+def test_rwkv6_state_carry():
+    """Two calls with the state carried == one call over the whole T."""
+    jx, tx = _rwkv_inputs(3, 1, 64, 2, 32)
+    y_full, s_full = r_ref.rwkv6_scan_ref(*jx)
+    r, k, v, w, u = tx
+    h = 40                                           # ragged halves
+    y1, s1 = t_ops.rwkv6(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, None,
+                         chunk=16)
+    y2, s2 = t_ops.rwkv6(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s1,
+                         chunk=16)
+    _close(torch.cat([y1, y2], dim=1), y_full)
+    _close(s2, s_full)
+
+
+def test_rwkv6_step_matches_scan():
+    rng = np.random.default_rng(9)
+    jx, tx = _rwkv_inputs(4, 2, 1, 2, 32)
+    sj, st = _pair(rng.standard_normal((2, 2, 32, 32)))
+    y_scan, s_scan = r_ref.rwkv6_scan_ref(*jx, sj)
+    r, k, v, w, u = tx
+    y_step, s_step = t_ops.rwkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
+                                      st)
+    _close(y_step, y_scan[:, 0], 1e-5)
+    _close(s_step, s_scan, 1e-5)
+    y_ref, s_ref = r_ops.rwkv6_step(*(x[:, 0] for x in jx[:4]), jx[4], sj)
+    _close(y_step, y_ref, 1e-5)
+    _close(s_step, s_ref, 1e-5)
+
+
+def test_rwkv6_bf16_vs_reference():
+    jx, tx = _rwkv_inputs(5, 1, 40, 2, 32, dtype="bfloat16")
+    y, s = t_ops.rwkv6(*tx, None)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx)
+    _close(y, y_ref, 2e-2)
+    _close(s, s_ref)
+
+
+# ----------------------------------------------------------------------
+# mamba2
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("B,T,NH,P,N,chunk", [
+    (1, 64, 2, 32, 16, 16),
+    (2, 96, 4, 64, 64, 32),
+    (1, 128, 1, 64, 32, 64),
+    (2, 45, 3, 32, 16, 32),      # T not a chunk multiple: padded
+])
+def test_mamba2_plain_vs_reference(B, T, NH, P, N, chunk):
+    jx, tx = _mamba_inputs(B * 100 + T + P + N, B, T, NH, P, N)
+    y, s = t_ops.mamba2(*tx, None, chunk=chunk)
+    assert y.shape == (B, T, NH, P) and s.dtype == torch.float32
+    y_ref, s_ref = r_ref.mamba2_ssd_ref(*jx)
+    _close(y, y_ref)
+    _close(s, s_ref)
+    y_p, s_p = r_ops.mamba2(*jx, None, chunk=chunk,
+                            backend="pallas_interpret")
+    _close(y, y_p, PALLAS_TOL["mamba2"])
+    _close(s, s_p, PALLAS_TOL["mamba2"])
+
+
+@pytest.mark.parametrize("dt_shift", [-12.0, 4.0],
+                         ids=["decay-near-1", "decay-near-0"])
+def test_mamba2_extreme_decays(dt_shift):
+    """dt ~ 1e-5 (exp(A dt) ~ 1) and dt ~ 4 with |A| up to ~3 (the
+    decay underflows towards 0 within a few steps)."""
+    jx, tx = _mamba_inputs(12, 1, 48, 2, 32, 16, dt_shift)
+    y, s = t_ops.mamba2(*tx, None, chunk=16)
+    y_ref, s_ref = r_ref.mamba2_ssd_ref(*jx)
+    _close(y, y_ref)
+    _close(s, s_ref)
+    y_p, s_p = r_ops.mamba2(*jx, None, chunk=16, backend="pallas_interpret")
+    _close(y, y_p, PALLAS_TOL["mamba2"])
+    _close(s, s_p, PALLAS_TOL["mamba2"])
+
+
+def test_mamba2_state_carry():
+    jx, tx = _mamba_inputs(6, 1, 64, 2, 32, 16)
+    y_full, s_full = r_ref.mamba2_ssd_ref(*jx)
+    x, dt, A, Bm, Cm, D = tx
+    h = 23
+    y1, s1 = t_ops.mamba2(x[:, :h], dt[:, :h], A, Bm[:, :h], Cm[:, :h], D,
+                          None, chunk=16)
+    y2, s2 = t_ops.mamba2(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:], D,
+                          s1, chunk=16)
+    _close(torch.cat([y1, y2], dim=1), y_full)
+    _close(s2, s_full)
+
+
+def test_mamba2_step_matches_scan():
+    rng = np.random.default_rng(9)
+    jx, tx = _mamba_inputs(7, 2, 1, 2, 32, 16)
+    sj, st = _pair(rng.standard_normal((2, 2, 16, 32)))
+    y_scan, s_scan = r_ref.mamba2_ssd_ref(*jx, sj)
+    x, dt, A, Bm, Cm, D = tx
+    y_step, s_step = t_ops.mamba2_step(x[:, 0], dt[:, 0], A, Bm[:, 0],
+                                       Cm[:, 0], D, st)
+    _close(y_step, y_scan[:, 0], 1e-5)
+    _close(s_step, s_scan, 1e-5)
+    xj, dtj, Aj, Bj, Cj, Dj = jx
+    y_ref, s_ref = r_ops.mamba2_step(xj[:, 0], dtj[:, 0], Aj, Bj[:, 0],
+                                     Cj[:, 0], Dj, sj)
+    _close(y_step, y_ref, 1e-5)
+    _close(s_step, s_ref, 1e-5)
+
+
+# ----------------------------------------------------------------------
+# the padding contract, the wrappers' checks, dispatch
+# ----------------------------------------------------------------------
+def test_padding_is_a_no_op():
+    """w=1, k=0 (rwkv6) and dt=0 (mamba2) pads leave y and the state
+    bit-identical: the plain scans over padded and unpadded inputs."""
+    _, (r, k, v, w, u) = _rwkv_inputs(8, 1, 21, 2, 32)
+    y, s = t_rwkv.plain(r, k, v, w, u)
+    pad = [t_ops._pad_seq(x, 16) for x in (r, k, v)]
+    yp, sp = t_rwkv.plain(*pad, t_ops._pad_seq(w, 16, value=1.0), u)
+    assert yp.shape[1] == 32
+    assert torch.equal(yp[:, :21], y) and torch.equal(sp, s)
+    _, (x, dt, A, Bm, Cm, D) = _mamba_inputs(8, 1, 21, 2, 32, 16)
+    y, s = t_ssd.plain(x, dt, A, Bm, Cm, D)
+    pad = [t_ops._pad_seq(a, 16) for a in (x, dt, Bm, Cm)]
+    yp, sp = t_ssd.plain(pad[0], pad[1], A, pad[2], pad[3], D)
+    assert torch.equal(yp[:, :21], y) and torch.equal(sp, s)
+
+
+def test_wrapper_checks_reject_what_the_kernels_cannot_take():
+    z = torch.zeros
+    r = z(1, 8, 2, 64)
+    s = z(1, 2, 64, 64)
+    t_rwkv._check(r, r, r, r, z(2, 64), s)                # accepted
+    with pytest.raises(TypeError, match="float32"):
+        t_rwkv._check(r, r, r, r.bfloat16(), z(2, 64), s)
+    with pytest.raises(ValueError, match="head dim 48"):
+        r48 = z(1, 8, 2, 48)
+        t_rwkv._check(r48, r48, r48, r48, z(2, 48), z(1, 2, 48, 48))
+    with pytest.raises(ValueError, match="state"):
+        t_rwkv._check(r, r, r, r, z(2, 64), z(1, 2, 64, 32))
+    with pytest.raises(ValueError, match="unit-stride"):
+        rt = z(1, 8, 64, 2).transpose(2, 3)
+        t_rwkv._check(rt, rt, rt, rt, z(2, 64), s)
+    x, dt, A, bc = z(1, 8, 2, 32), z(1, 8, 2), z(2), z(1, 8, 16)
+    t_ssd._check(x, dt, A, bc, bc, A, z(1, 2, 16, 32))    # accepted
+    with pytest.raises(ValueError, match="multiple of 16"):
+        x24 = z(1, 8, 2, 24)
+        t_ssd._check(x24, dt, A, bc, bc, A, z(1, 2, 16, 24))
+    with pytest.raises(ValueError, match="state dim 24"):
+        b24 = z(1, 8, 24)
+        t_ssd._check(x, dt, A, b24, b24, A, z(1, 2, 24, 32))
+    with pytest.raises(TypeError):
+        t_ssd._check(x, dt.bfloat16(), A, bc, bc, A, z(1, 2, 16, 32))
+
+
+def test_scans_dispatch_on_cpu_to_the_plain_versions():
+    _, tx = _rwkv_inputs(1, 1, 16, 2, 32)
+    _, mx = _mamba_inputs(1, 1, 16, 2, 32, 16)
+    before = (t_rwkv.rwkv6_scan.launches, t_ssd.mamba2_ssd.launches)
+    for backend in (None, "auto", "ref"):
+        y, _ = t_ops.rwkv6(*tx, None, backend=backend)
+        torch.testing.assert_close(y, t_rwkv.plain(*tx)[0])
+        y, _ = t_ops.mamba2(*mx, None, backend=backend)
+        torch.testing.assert_close(y, t_ssd.plain(*mx)[0])
+    assert (t_rwkv.rwkv6_scan.launches,
+            t_ssd.mamba2_ssd.launches) == before      # no kernel on CPU
+    with pytest.raises(ValueError):
+        t_ops.rwkv6(*tx, None, backend="cuda")
+    with pytest.raises(ValueError):
+        t_ops.mamba2(*mx, None, backend="cuda")
