@@ -8,10 +8,12 @@ Phases, each fatal on failure (the script exits non-zero):
      parallel);
   2. kernels: each kernel against its plain torch version, in bf16 and
      f32, at the shapes of the main paths and around them (flash at hd
-     128 and hd 80, ragged lengths, carried states), with times (median
-     of CUDA events), the plain version's time, the card's bound and,
-     for flash attention, ``scaled_dot_product_attention``'s time as a
-     yardstick the port never calls;
+     128 and hd 80, ragged lengths, partial tiles, carried states, B=2,
+     single steps), with times (median of CUDA events), the plain
+     version's time, the card's bound and the share of it reached, for
+     flash attention ``scaled_dot_product_attention``'s time as a
+     yardstick the port never calls, and each instance's registers and
+     spills from the build;
   3. serving: three archs at full width and depth in bf16 with seeded
      random weights, one after the other (each freed before the next):
      llama32-3b (28 layers), rwkv6-3b (32) and zamba2-2.7b (54); 4
@@ -23,7 +25,9 @@ Phases, each fatal on failure (the script exits non-zero):
      llama). Checks the streams, the first tokens across setups,
      teacher-forced decode logits of request 0 against an f32
      kernel-free recompute built from ``kernels/ref.py``, and times one
-     prefill, one decode step and one state store+fetch per medium;
+     prefill and one decode step (CUDA-event windows behind a ~20 ms and
+     a ~100 ms spin, wall, and the device operations of a profiler
+     trace) and one state store+fetch per medium;
   4. parity: f32 at full width and reduced depth (llama32-3b 4 layers,
      rwkv6-3b 4, zamba2-2.7b 12, i.e. 2 groups), TF32 off, must give
      identical token streams in all five setups, and teacher-forced
@@ -34,9 +38,16 @@ before its last line, which is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
   python3 chip_smoke.py            # from the repository root
+
+Two diagnostics, which print their JSON line and the card instead:
+``--windows DIR`` times phase 3's prefill and decode step (and the flash
+wrapper's host time) of the checkout at DIR, so that two checkouts are
+compared in one call with one yardstick; ``--flash-ablation`` times the
+bf16 flash kernel built with one part switched off at a time.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import statistics
@@ -55,6 +66,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 SPIN_CYCLES = 40_000_000        # ~20 ms at 1.98 GHz: outlasts the host's enqueue
+SPIN_LONG = 200_000_000         # ~100 ms
 
 
 def log(msg: str) -> None:
@@ -69,7 +81,8 @@ def require(cond: bool, msg: str) -> None:
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
-def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None,
+            spin: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn`` in ms between two CUDA events.
 
     A spin kernel queued before the first event keeps the card busy
@@ -85,7 +98,7 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
             flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         a.record()
         fn()
         b.record()
@@ -107,6 +120,41 @@ def host_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def wrapper_host_ms(torch, fn, calls: int = 100) -> float:
+    """Host time of one call of a kernel's wrapper in ms: ``calls`` calls
+    back to back, unsynchronised, so the card never holds the host up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host
+
+
+def kernel_time(torch, fn) -> dict:
+    """The device operations of one call of ``fn`` from a torch.profiler
+    trace: their count, their summed time (the card's busy time, host
+    gaps excluded) and the span from the first one's start to the last
+    one's end, in ms; None where the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        return dict(ops=0, busy_ms=None, span_ms=None)
+    start = min(e.time_range.start for e in ops)
+    end = max(e.time_range.end for e in ops)
+    return dict(ops=len(ops),
+                busy_ms=sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+                span_ms=(end - start) / 1e3)
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -141,6 +189,8 @@ def flash_cases():
     yield "hd80", 1, 1024, 1024, 32, 32, 80, True, 0, 0      # zamba2's
     yield "hd80-win", 1, 1024, 1024, 32, 32, 80, True, 256, 0
     yield "hd80-rag", 1, 1000, 1000, 32, 32, 80, True, 0, 0
+    yield "hd80-noncausal", 1, 1024, 1024, 32, 32, 80, False, 0, 0
+    yield "tiny", 1, 17, 17, 24, 8, 128, True, 0, 0
 
 
 def paged_cases():
@@ -164,6 +214,9 @@ def mamba2_cases():
     yield "main", 1, 1024, 80, 64, 64, False
     yield "ragged", 1, 1000, 80, 64, 64, False
     yield "carried", 1, 1024, 80, 64, 64, True
+    yield "B2", 2, 1024, 80, 64, 64, True
+    yield "short", 1, 37, 80, 64, 64, True
+    yield "one", 1, 1, 80, 64, 64, True
 
 
 def flash_pairs(q_offset, S, T, causal, window) -> int:
@@ -232,14 +285,19 @@ def phase_kernels(torch):
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
             b_ms, b_by = bound(flops, nbytes, dtype_name)
-            log(f"flash {label:9s} {dtype_name:8s} B={B} S={S} T={T} H={H} "
+            log(f"flash {label:14s} {dtype_name:8s} B={B} S={S} T={T} H={H} "
                 f"KV={KV} hd={hd} causal={causal} window={window} "
                 f"q_offset={q_offset}: max_abs_err={err:.3e} "
                 f"(tol {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+                f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it")
             require(ok, f"flash {label} {dtype_name}: max_abs_err {err:.3e} "
                         f"over tolerance {tol}")
+            if label == "main":
+                host = wrapper_host_ms(torch, lambda: (
+                    flash_prefill.flash_attention(q, k, v, **kw)))
+                log(f"flash main {dtype_name}: wrapper host time {host:.4f} "
+                    f"ms per call (checks, output, tensor maps, launch)")
             if label == "main" and dtype_name == "bfloat16":
                 rows["flash_attention"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -272,7 +330,8 @@ def phase_kernels(torch):
             log(f"paged {label:9s} {dtype_name:8s} B={B} H={H} KV={KV} "
                 f"hd={hd} page={page} seq_lens={lens}: "
                 f"max_abs_err={err:.3e} (tol {tol}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms:.1%} of it")
             require(ok, f"paged {label} {dtype_name}: max_abs_err {err:.3e} "
                         f"over tolerance {tol}")
             if label == "main" and dtype_name == "bfloat16":
@@ -309,7 +368,8 @@ def phase_kernels(torch):
             log(f"rwkv6 {label:9s} {dtype_name:8s} B={B} T={T} NH={NH} "
                 f"hd={hd} carried={carried}: max_abs_err={err:.3e} "
                 f"(tol {tol}, state {TOL['float32']}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms:.1%} of it")
             require(ok, f"rwkv6 {label} {dtype_name}: max_abs_err "
                         f"{err:.3e} over tolerance")
             if label == "main" and dtype_name == "bfloat16":
@@ -349,7 +409,8 @@ def phase_kernels(torch):
             log(f"mamba2 {label:8s} {dtype_name:8s} B={B} T={T} NH={NH} "
                 f"P={P} N={N} carried={carried}: max_abs_err={err:.3e} "
                 f"(tol {tol}, state {TOL['float32']}) kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms:.1%} of it")
             require(ok, f"mamba2 {label} {dtype_name}: max_abs_err "
                         f"{err:.3e} over tolerance")
             if label == "main" and dtype_name == "bfloat16":
@@ -565,20 +626,18 @@ def check_teacher_forced(torch, model, params, cfg, prompt, outs):
             f"recompute, over 3x the bf16 noise floor {noise:.4e}")
 
 
-def component_times(torch, model, params, cfg, prompts, outs):
-    """CUDA-event times of one prefill and one B=4 decode step at the
-    main path's shapes, and the store+fetch of one sequence's handoff
-    payload per medium (host clock), checked bit-exact."""
-    from repro_torch.core import make_path, random_workload
-    from repro_torch.core.transfer import map_tensors
+def main_path_fns(torch, model, params, cfg, prompt, outs):
+    """One prefill of ``prompt`` and one B=4 decode step (ctx ~1024) at
+    the main path's shapes, as RealExecutor calls them, and one
+    sequence's handoff payload: (prefill, step, payload, what)."""
+    from repro_torch.core import random_workload
     from repro_torch.launch.serve import device_kv
-    toks = torch.tensor(prompts[0], device="cuda")[None]
+    toks = torch.tensor(prompt, device="cuda")[None]
     # as RealExecutor calls it: the recurrent families size their state
     kw = {} if model.family == "dense" else {"s_max": PROMPT + OUTPUT + 2}
-    prefill_ms = cuda_ms(torch, lambda: model.prefill(
-        params, {"tokens": toks}, **kw), reps=5)
-    prefill_host_ms = host_ms(torch, lambda: model.prefill(
-        params, {"tokens": toks}, **kw), reps=3)
+
+    def prefill():
+        return model.prefill(params, {"tokens": toks}, **kw)
     tok4 = torch.tensor(outs[:N_REQ], device="cuda")
     pos = torch.tensor([PROMPT + 3 * i for i in range(N_REQ)],
                        dtype=torch.int32, device="cuda")
@@ -593,26 +652,57 @@ def component_times(torch, model, params, cfg, prompts, outs):
 
         def step():
             return model.decode_step_paged(params, tok4, kv.k, kv.v, bt, pos)
-        _, cache = model.prefill(params, {"tokens": toks})
+        _, cache = prefill()
         k, v = cache.k[:, 0].contiguous(), cache.v[:, 0].contiguous()
         payload = (0, k, v, torch.zeros(1, cfg.vocab_size, device="cuda"))
-        what = "KV"
-    else:
-        logits, state = model.prefill(params, {"tokens": toks}, **kw)
-        joined = model.state_type(*(torch.cat([x] * N_REQ, dim=1)
-                                    for x in state))
+        return prefill, step, payload, "KV"
+    logits, state = prefill()
+    joined = model.state_type(*(torch.cat([x] * N_REQ, dim=1)
+                                for x in state))
 
-        def step():
-            return model.decode_step(params, tok4, joined, pos)
-        payload = (tuple(state), logits)
-        what = "state"
-    decode_ms = cuda_ms(torch, step, reps=10)
-    decode_host_ms = host_ms(torch, step, reps=10)
-    log(f"{cfg.name} one prefill (1 x {PROMPT} tokens, {cfg.num_layers} "
-        f"layers): {prefill_ms:.3f} ms CUDA-event window, "
-        f"{prefill_host_ms:.3f} ms wall; one decode step (B={N_REQ}, ctx "
-        f"~{PROMPT}): {decode_ms:.3f} ms CUDA-event window, "
-        f"{decode_host_ms:.3f} ms wall")
+    def step():
+        return model.decode_step(params, tok4, joined, pos)
+    return prefill, step, (tuple(state), logits), "state"
+
+
+def window_times(torch, prefill, step) -> dict:
+    """Times in ms of one prefill and one decode step: the CUDA-event
+    window behind a ~20 ms spin (``window20``) and behind a ~100 ms one
+    (``window100``), the wall time, synchronised (``wall``), and the
+    device operations of a profiler trace (``kernel_time``). A window
+    holds the host's time too wherever the host still enqueues when the
+    spin ends."""
+    times = {}
+    for name, fn, reps in (("prefill", prefill, 5), ("decode", step, 10)):
+        times[name] = dict(
+            window20=cuda_ms(torch, fn, reps=reps),
+            window100=cuda_ms(torch, fn, reps=reps, spin=SPIN_LONG),
+            wall=host_ms(torch, fn, reps=reps), **kernel_time(torch, fn))
+    return times
+
+
+def log_windows(name: str, times: dict) -> None:
+    shape = {"prefill": f"1 x {PROMPT} tokens",
+             "decode": f"B={N_REQ}, ctx ~{PROMPT}"}
+    for what, t in times.items():
+        busy = "not measured" if t["busy_ms"] is None else (
+            f"{t['busy_ms']:.3f} ms busy in {t['ops']} device ops over a "
+            f"{t['span_ms']:.3f} ms span")
+        log(f"{name} one {what} ({shape[what]}): CUDA-event window "
+            f"{t['window20']:.3f} ms behind a 20 ms spin, "
+            f"{t['window100']:.3f} ms behind a 100 ms spin; wall "
+            f"{t['wall']:.3f} ms; profiler {busy}")
+
+
+def component_times(torch, model, params, cfg, prompts, outs):
+    """Times of one prefill and one B=4 decode step at the main path's
+    shapes (``window_times``), and the store+fetch of one sequence's
+    handoff payload per medium (host clock), checked bit-exact."""
+    from repro_torch.core import make_path
+    from repro_torch.core.transfer import map_tensors
+    prefill, step, payload, what = main_path_fns(torch, model, params, cfg,
+                                                 prompts[0], outs)
+    log_windows(cfg.name, window_times(torch, prefill, step))
     flat = []
     map_tensors(flat.append, payload)
     mb = nbytes_of(*flat) / 1e6
@@ -704,15 +794,120 @@ def phase_parity(torch):
 
 
 # ----------------------------------------------------------------------
+# diagnostics (not run by default)
+# ----------------------------------------------------------------------
+def windows_only(torch) -> dict:
+    """``--windows DIR``: phase 3's prefill and decode-step times of each
+    arch, and the flash wrapper's host time at the main shape, for the
+    checkout whose ``src`` is on the path, with this script's yardsticks.
+    Run on two checkouts in one call, it compares them like for like."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import random_workload
+    from repro_torch.kernels import flash_prefill
+    from repro_torch.models import get_model
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, PROMPT, 24, 128, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(1, PROMPT, 8, 128, generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    out["flash_wrapper_host_ms"] = wrapper_host_ms(
+        torch, lambda: flash_prefill.flash_attention(q, k, v, causal=True))
+    log(f"flash main bfloat16: wrapper host time "
+        f"{out['flash_wrapper_host_ms']:.4f} ms per call")
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        prompt = list(random_workload(1, input_len=PROMPT, output_len=OUTPUT,
+                                      vocab_size=cfg.vocab_size,
+                                      seed=0)[0].prompt_tokens)
+        prefill, step, _, _ = main_path_fns(torch, model, params, cfg,
+                                            prompt, prompt[:N_REQ])
+        out[arch] = window_times(torch, prefill, step)
+        log_windows(arch, out[arch])
+        del model, params, prefill, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+ABLATIONS = {1: "softmax arithmetic off", 2: "O += P V off",
+             3: "S = Q K^T off"}
+
+
+def flash_ablation(torch) -> dict:
+    """``--flash-ablation``: the bf16 flash kernel as built and built with
+    FLASH_ABLATE = 1, 2, 3, each of which switches one part of it off
+    (its output is then wrong), timed at the main shape, at S = 8192 and
+    at hd 64 and 80: what each part costs the kernel."""
+    import ctypes
+    from repro_torch.kernels import _build, flash_prefill
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in ABLATIONS:
+        lib = _build.BUILD_DIR / f"libflash_prefill-ablate{n}.so"
+        procs[n] = lib, subprocess.Popen(
+            [_build.nvcc(), *_build.FLAGS, f"-DFLASH_ABLATE={n}", "-o",
+             str(lib), str(_build.CSRC / "flash_prefill.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for n, (lib, proc) in procs.items():
+        report, _ = proc.communicate()
+        require(proc.returncode == 0, f"ablation {n} build:\n{report}")
+        fns[n] = ctypes.CDLL(str(lib)).flash_prefill_fwd
+        fns[n].argtypes = flash_prefill._ARGTYPES
+        fns[n].restype = ctypes.c_int
+
+    def launch(fn, q, k, v, o):
+        B, S, H, hd = q.shape
+        err = fn(1, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), B, S, k.shape[1], H, k.shape[2],
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1, 0, 0,
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"ablation launch: CUDA error {err}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, S, H, KV, hd in (("main", 1024, 24, 8, 128),
+                                ("long", 8192, 24, 8, 128),
+                                ("hd64", 1024, 16, 8, 64),
+                                ("hd80", 1024, 32, 32, 80)):
+        q = torch.randn(1, S, H, hd, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(1, S, KV, hd, generator=g,
+                            device="cuda").bfloat16() for _ in range(2))
+        o = torch.empty_like(q)
+        reps = 5 if S >= 8192 else 20
+        t = {"as built": cuda_ms(torch, lambda: flash_prefill.flash_attention(
+            q, k, v, causal=True), reps=reps, flush=flush)}
+        for n, what in ABLATIONS.items():
+            t[what] = cuda_ms(torch, lambda: launch(fns[n], q, k, v, o),
+                              reps=reps, flush=flush)
+        out[label] = t
+        log(f"flash ablation {label} (S={S} H={H} KV={KV} hd={hd}, causal): "
+            + ", ".join(f"{w} {ms:.4f} ms" for w, ms in t.items()))
+    return out
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--windows", metavar="DIR", type=Path,
+                    help="only time phase 3's prefill and decode step, of "
+                         "the checkout at DIR")
+    ap.add_argument("--flash-ablation", action="store_true",
+                    help="only time the flash kernel with parts switched off")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device")
         return 1
-    if not (SRC / "repro_torch").is_dir():
-        log(f"FAIL: no src/repro_torch beside {Path(__file__).name}")
+    src = SRC if args.windows is None else args.windows.resolve() / "src"
+    if not (src / "repro_torch").is_dir():
+        log(f"FAIL: no src/repro_torch in {src.parent}")
         return 1
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
@@ -729,11 +924,17 @@ def main() -> int:
     built = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
+    if args.windows is not None or args.flash_ablation:
+        fn = windows_only if args.windows is not None else flash_ablation
+        print(json.dumps({"tree": str(src.parent), fn.__name__: fn(torch)}))
+        print(smi)
+        return 0
     for name in _build.KERNELS:
         report = _build.library_path(name).with_suffix(".log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("entry function" in line or "registers" in line
+                        or "spill" in line):
                     log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()

@@ -1,8 +1,7 @@
 // Flash attention for prefill: causal, sliding-window or non-causal GQA
 // attention with an online softmax, q [B,S,H,hd], k/v [B,T,KV,hd] ->
-// o [B,S,H,hd], f32 or bf16 in, f32 accumulation. Head dims 32, 64, 80
-// (zamba2's shared block) and 128: every tile walks hd in steps of 4
-// (f32), 8 (staging) or 16 (WMMA), all of which divide 80.
+// o [B,S,H,hd], f32 or bf16 in, f32 accumulation, head dims 32, 64, 80
+// (zamba2's shared block) and 128.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill.py,
 // _flash_kernel (called through flash_attention).
@@ -10,36 +9,55 @@
 // What bounds it on the H100: at prefill lengths the work is
 // 4*S*T_eff*hd*H operations against O((S+T)*hd) bytes, far above the
 // card's ~295 operations per byte, so it is bound by arithmetic: the
-// 989 TFLOP/s bf16 tensor-core rate. bf16 inputs take the tensor cores
-// through WMMA (16x16x16 mma.sync tiles, f32 accumulation); f32 inputs
-// stay exact on the CUDA cores (67 TFLOP/s). wgmma/TMA, which the full
-// rate needs, are the next step.
+// 989 TFLOP/s bf16 tensor-core rate, which only wgmma reaches. f32 inputs
+// stay exact on the CUDA cores (67 TFLOP/s): TF32 would miss the f32
+// tolerance. Besides the products, every score costs softmax work on the
+// CUDA cores and one exp2, and every block streams its own K/V tiles
+// from L2 (one pass per 128 query rows: 3.3 GB at S = 8192, H = 24);
+// overlapping those with the products is what the design below is for.
 //
 // Design. The TPU grid walks kv blocks in order and carries (m, l, acc)
 // in VMEM scratch across grid steps. Here blocks run in no order, so one
 // block owns (batch, query head, tile of query rows) and itself loops
-// over the K/V tiles of 64 keys staged in shared memory.
+// over the K/V tiles. Both paths stop the key loop at the causal diagonal
+// of the tile's last row and start it at the window's edge of its first
+// row, mask the rest per row (kpos < T, causal, window), keep scores in
+// the log2 domain, honour q_offset, read inputs in place by their
+// strides, and schedule causal tiles heaviest (last) first.
 //
-// bf16 (flash_fwd_tc): 4 warps, 16 query rows each. Per tile a warp
-// computes its 16x64 scores S = Q K^T with WMMA into shared memory; each
-// pair of lanes owns one row for the online softmax (log2 domain), writes
-// P in bf16 and rescales its row of the f32 output accumulator, kept in
-// shared memory because WMMA fragments hide their row layout; then the
-// warp adds P V with WMMA.
+// bf16 (flash_fwd_hopper): a block owns 128 query rows and has three
+// warpgroups. The producer warpgroup gives its registers away
+// (setmaxnreg) and one of its threads issues every load as TMA
+// (cp.async.bulk.tensor over 4-d tensor maps of the strided inputs, built
+// on the host): Q once, then K/V tiles of 64 keys into a ring of 3
+// stages, each with a full mbarrier (TMA bytes) and an empty one (one
+// arrival per consumer warp). Each of the two consumer warpgroups owns
+// 64 query rows and holds them, and O, in registers for the whole key
+// loop: Q is read once from its tile into wgmma A fragments; S = Q K^T is
+// wgmma m64n64k16 with K (stored [keys][hd], K-major) in shared memory;
+// the online softmax works on the accumulator fragments (a thread holds
+// 2 rows, so row max and sum take two shuffles; the 1/sqrt(hd) scale
+// folds into one fma per score before a single-instruction exp2); P is
+// converted in place to the bf16 A fragments of the next product (the
+// accumulator layout of 16 keys is the A layout of one k-step); and
+// O += P V is wgmma with V, stored [keys][hd], read through the
+// transposed (MN-major) descriptor. The loop is software-pipelined: the
+// scores of tile j are issued together with P V of tile j-1, and the
+// softmax of tile j runs while that product is still on the tensor
+// cores. Nothing but the TMA tiles goes through shared memory. TMA
+// zero-fills rows past S or T. The tiles are swizzled as wide as a row
+// allows: 128-byte rows (hd 64, and hd 128 as two 64-column boxes),
+// 64-byte rows (hd 32) and, as 160-byte rows fit no swizzle pattern,
+// five 32-byte boxes for hd 80, whose O += P V is then five n16 products
+// a k-step. A wait that never completes traps instead of hanging.
 //
-// f32 (flash_fwd): each tile is staged as f32 and read by every row of
-// the block; the running max, denominator and accumulator stay in
-// registers. Each query row belongs to
-// NSPLIT = 1 or 2 threads (hd 128 is split in two so q and acc fit in
-// registers); the partial dot products meet through one shuffle. Scores
-// are kept in the log2 domain (q is pre-scaled by log2(e)/sqrt(hd)) and
-// the accumulator is rescaled once per 16 keys. The key loop stops at the
-// causal diagonal of the tile's last row and starts at the window's edge
-// of its first row; the per-row mask (kpos < T, causal, window) handles
-// the rest. Inputs are read in place by their strides: no transpose and
-// no zero padding, unlike the TPU wrapper. Causal tiles are scheduled
-// heaviest (last) first to shorten the tail.
-#include <mma.h>
+// f32 (flash_fwd): each tile of 64 keys is staged as f32 and read by
+// every row of the block; the running max, denominator and accumulator
+// stay in registers. Each query row belongs to NSPLIT = 1 or 2 threads
+// (hd 128 is split in two so q and acc fit in registers); the partial dot
+// products meet through one shuffle, and the accumulator is rescaled once
+// per 16 keys.
+#include <cuda.h>  // CUtensorMap and the driver API types
 
 #include "common.cuh"
 
@@ -228,201 +246,670 @@ int dispatch_f32(int hd, const Params& p, cudaStream_t stream) {
 }
 
 // ----------------------------------------------------------------------
-// bf16 on the tensor cores (WMMA)
+// bf16 on the tensor cores: wgmma + TMA, warp-specialised
 // ----------------------------------------------------------------------
-namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcWarps = 4;
-constexpr int kTcRows = 16 * kTcWarps;   // query rows per block
+constexpr int kConsumers = 2;                    // warpgroups of query rows
+constexpr int kRowsWG = 64;                      // query rows per warpgroup
+constexpr int kHopRows = kConsumers * kRowsWG;   // query rows per block
+constexpr int kKeys = 64;                        // keys per K/V tile
+constexpr int kStages = 3;                       // depth of the K/V ring
+constexpr int kHopThreads = (kConsumers + 1) * 128;
+constexpr long long kWatchdogCycles = 1ll << 33;  // a few seconds
+// Diagnostic builds only (chip_smoke.py --flash-ablation) switch one part
+// of the bf16 kernel off, leaving its output wrong: 1 the softmax
+// arithmetic (P = bf16(S)), 2 O += P V, 3 S = Q K^T (S = 0).
+#ifndef FLASH_ABLATE
+#define FLASH_ABLATE 0
+#endif
+constexpr int kAblate = FLASH_ABLATE;
 
-// Shared-memory plan (byte offsets; every fragment start 32-byte aligned,
-// rows padded against bank conflicts).
+// One TMA box is 64 rows by kBoxD columns: rows of kRowBytes, which is
+// also the swizzle span, so that wgmma reads the tile without bank
+// conflicts. hd 80 (160-byte rows) fits no 128-byte swizzle, so it is
+// cut into five 32-byte boxes.
 template <int HD>
-struct TcSmem {
-  static constexpr int kLdX = HD + 8;        // bf16 Q/K/V rows
-  static constexpr int kLdS = kBlockK + 4;   // f32 scores
-  static constexpr int kLdP = kBlockK + 8;   // bf16 probabilities
-  static constexpr int kLdO = HD + 4;        // f32 output accumulator
-  static constexpr int q = 0;
-  static constexpr int k = q + kTcRows * kLdX * 2;
-  static constexpr int v = k + kBlockK * kLdX * 2;
-  static constexpr int s = v + kBlockK * kLdX * 2;
-  static constexpr int p = s + kTcWarps * 16 * kLdS * 4;
-  static constexpr int o = p + kTcWarps * 16 * kLdP * 2;
-  static constexpr int bytes = o + kTcWarps * 16 * kLdO * 4;
+struct HopTile {
+  static constexpr int kBoxD = HD == 32 ? 32 : HD == 80 ? 16 : 64;
+  static constexpr int kBoxes = HD / kBoxD;
+  static constexpr int kRowBytes = kBoxD * 2;
+  static constexpr int kBoxBytes = 64 * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // 64 rows of Q, K or V
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr int kSbo = 8 * kRowBytes;              // to the next 8 rows
 };
 
-// rows x HD bf16 from global (row stride ld_g elements) into shared
-// (row stride ld_s), zero rows at or past n_valid.
 template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld_s,
-                                           const bf16* src, long long ld_g,
-                                           int rows, int n_valid) {
-  constexpr int kVec = HD / 8;   // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * kVec; i += kTcWarps * 32) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) x = *reinterpret_cast<const uint4*>(src + r * ld_g + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_s + c) = x;
+struct HopSmem {  // byte offsets from a 1024-aligned base
+  using TL = HopTile<HD>;
+  static constexpr int q = 0;                                  // [kConsumers]
+  static constexpr int k = q + kConsumers * TL::kTileBytes;    // [kStages]
+  static constexpr int v = k + kStages * TL::kTileBytes;       // [kStages]
+  static constexpr int bars = v + kStages * TL::kTileBytes;    // full, empty, q
+  static constexpr int bytes = bars + (2 * kStages + 1) * 8;
+};
+
+struct HopParams {
+  void* o;
+  int B, S, T, H, KV;
+  int causal, window, q_offset;
+  float scale_log2;
+  // coordinate slot (1..3) of the row, head and batch dims in each map
+  int q_row, q_head, q_b, k_row, k_head, k_b, v_row, v_head, v_b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Wait for the phase of parity `parity` to complete; trap rather than
+// hang if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > kWatchdogCycles) __trap();
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kTcWarps * 32) flash_fwd_tc(const Params p) {
-  using SM = TcSmem<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::v);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* Ss = reinterpret_cast<float*>(smem + SM::s) + warp * 16 * SM::kLdS;
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::p) + warp * 16 * SM::kLdP;
-  float* Os = reinterpret_cast<float*>(smem + SM::o) + warp * 16 * SM::kLdO;
+// One box of a 4-d tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+// the coordinate in slot `slot` of a map whose row, head and batch dims
+// sit in slots (sr, sh, sb)
+__device__ __forceinline__ int coord(int slot, int sr, int sh, int row,
+                                     int head, int b) {
+  return slot == sr ? row : slot == sh ? head : b;
+}
 
-  const int n_tiles = (p.S + kTcRows - 1) / kTcRows;
-  const int qt = n_tiles - 1 - blockIdx.x;
-  const int h = blockIdx.y;
+// wgmma shared-memory matrix descriptor: start, leading and stride byte
+// offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(const void* ptr, int lbo,
+                                              int sbo, int layout) {
+  const uint64_t a = smem_u32(ptr);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(layout) << 62);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {   // at most N groups pending
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving register reads or writes across the
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A (registers) * B (smem, K-major), m64n64k16; d is zeroed first
+// when !accumulate.
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d += A (registers) * B (smem, MN-major: transposed), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d += A (registers) * B (smem, MN-major: transposed), m64n32k16
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d += A (registers) * B (smem, MN-major: transposed), m64n16k16
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+
+// 2^x in one MUFU instruction (flush to zero below 2^-126; -inf -> 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_fwd_hopper(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const HopParams p) {
+  using TL = HopTile<HD>;
+  using SM = HopSmem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + SM::bars);
+  const uint32_t qbar = bars + 16 * kStages;
+
+  const int n_tiles = (p.S + kHopRows - 1) / kHopRows;
+  const int h = blockIdx.x;                 // every head's heaviest tile
+  const int qt = n_tiles - 1 - blockIdx.y;  // is scheduled first
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int row0 = qt * kTcRows;
+  const int row0 = qt * kHopRows;
 
-  stage_rows<HD>(Qs, SM::kLdX,
-                 static_cast<const bf16*>(p.q) + b * p.sqb + h * p.sqh +
-                     row0 * p.sqs,
-                 p.sqs, kTcRows, p.S - row0);
-  for (int i = lane; i < 16 * HD; i += 32) Os[(i / HD) * SM::kLdO + i % HD] = 0.f;
-
-  // this lane's row of the warp's 16, and which half of its columns
-  const int r = lane >> 1, half = lane & 1;
-  const int qrow = row0 + warp * 16 + r;
-  const int qpos = p.q_offset + qrow;
-  float m = -INFINITY, l = 0.f;
-
+  // the keys this block's rows need, in whole tiles
   const int q_first = p.q_offset + row0;
-  const int q_last = p.q_offset + min(row0 + kTcRows, p.S) - 1;
+  const int q_last = p.q_offset + min(row0 + kHopRows, p.S) - 1;
   int k_end = p.T;
   if (p.causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
-  k_begin = (k_begin / kBlockK) * kBlockK;
+  k_begin = (k_begin / kKeys) * kKeys;
+  const int n_kv = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
+  const int n_wg = min(kConsumers, (p.S - row0 + kRowsWG - 1) / kRowsWG);
 
-  const bf16* kbase = static_cast<const bf16*>(p.k) + b * p.skb + kvh * p.skh;
-  const bf16* vbase = static_cast<const bf16*>(p.v) + b * p.svb + kvh * p.svh;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                         // full: TMA bytes
+      mbar_init(bars + 8 * (kStages + s), 4 * kConsumers);  // empty: warps
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<HD>(Ks, SM::kLdX, kbase + k0 * p.sks, p.sks, kBlockK,
-                   p.T - k0);
-    stage_rows<HD>(Vs, SM::kLdX, vbase + k0 * p.svs, p.svs, kBlockK,
-                   p.T - k0);
-    __syncthreads();
-
-    {  // S = Q K^T for this warp's 16 rows
-      wm::fragment<wm::accumulator, 16, 16, 16, float> acc[kBlockK / 16];
-#pragma unroll
-      for (int j = 0; j < kBlockK / 16; ++j) wm::fill_fragment(acc[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-        wm::load_matrix_sync(a, Qs + warp * 16 * SM::kLdX + kk * 16, SM::kLdX);
-#pragma unroll
-        for (int j = 0; j < kBlockK / 16; ++j) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> kf;
-          wm::load_matrix_sync(kf, Ks + j * 16 * SM::kLdX + kk * 16, SM::kLdX);
-          wm::mma_sync(acc[j], a, kf, acc[j]);
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, n_wg * TL::kTileBytes);
+      for (int w = 0; w < n_wg; ++w) {
+        const int row = row0 + w * kRowsWG;
+        for (int bx = 0; bx < TL::kBoxes; ++bx)
+          tma_load(smem + SM::q + w * TL::kTileBytes + bx * TL::kBoxBytes, &mq,
+                   qbar, bx * TL::kBoxD,
+                   coord(1, p.q_row, p.q_head, row, h, b),
+                   coord(2, p.q_row, p.q_head, row, h, b),
+                   coord(3, p.q_row, p.q_head, row, h, b));
+      }
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % kStages;
+        const uint32_t full = bars + 8 * st;
+        mbar_wait(bars + 8 * (kStages + st), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * TL::kTileBytes);
+        const int k0 = k_begin + it * kKeys;
+        for (int bx = 0; bx < TL::kBoxes; ++bx) {
+          tma_load(smem + SM::k + st * TL::kTileBytes + bx * TL::kBoxBytes,
+                   &mk, full, bx * TL::kBoxD,
+                   coord(1, p.k_row, p.k_head, k0, kvh, b),
+                   coord(2, p.k_row, p.k_head, k0, kvh, b),
+                   coord(3, p.k_row, p.k_head, k0, kvh, b));
+          tma_load(smem + SM::v + st * TL::kTileBytes + bx * TL::kBoxBytes,
+                   &mv, full, bx * TL::kBoxD,
+                   coord(1, p.v_row, p.v_head, k0, kvh, b),
+                   coord(2, p.v_row, p.v_head, k0, kvh, b),
+                   coord(3, p.v_row, p.v_head, k0, kvh, b));
         }
       }
-#pragma unroll
-      for (int j = 0; j < kBlockK / 16; ++j)
-        wm::store_matrix_sync(Ss + j * 16, acc[j], SM::kLdS, wm::mem_row_major);
     }
-    __syncwarp();
-
-    {  // online softmax on this lane's half row; P in bf16
-      const int n_keys = min(kBlockK, k_end - k0);
-      const float* srow = Ss + r * SM::kLdS + half * (kBlockK / 2);
-      float sv[kBlockK / 2];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < kBlockK / 2; ++c) {
-        const int j = half * (kBlockK / 2) + c;
-        const int kpos = k0 + j;
-        bool ok = j < n_keys;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        sv[c] = ok ? srow[c] * p.scale_log2 : -INFINITY;
-        cmax = fmaxf(cmax, sv[c]);
-      }
-      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-      const float m_new = fmaxf(m, cmax);
-      const float base = (m_new == -INFINITY) ? 0.f : m_new;
-      const float alpha = exp2f(m - base);
-      float sum = 0.f;
-      bf16* prow = Ps + r * SM::kLdP + half * (kBlockK / 2);
-#pragma unroll
-      for (int c = 0; c < kBlockK / 2; ++c) {
-        const float pv = exp2f(sv[c] - base);
-        prow[c] = __float2bfloat16(pv);
-        sum += pv;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      l = l * alpha + sum;
-      m = m_new;
-      float* orow = Os + r * SM::kLdO + half * (HD / 2);
-#pragma unroll
-      for (int c = 0; c < HD / 2; ++c) orow[c] *= alpha;
-    }
-    __syncwarp();
-
-    {  // O += P V
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> pf[kBlockK / 16];
-#pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk)
-        wm::load_matrix_sync(pf[kk], Ps + kk * 16, SM::kLdP);
-#pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
-        wm::fragment<wm::accumulator, 16, 16, 16, float> o;
-        wm::load_matrix_sync(o, Os + c * 16, SM::kLdO, wm::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < kBlockK / 16; ++kk) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> vf;
-          wm::load_matrix_sync(vf, Vs + kk * 16 * SM::kLdX + c * 16, SM::kLdX);
-          wm::mma_sync(o, pf[kk], vf, o);
-        }
-        wm::store_matrix_sync(Os + c * 16, o, SM::kLdO, wm::mem_row_major);
-      }
-    }
-    __syncwarp();
+    return;
   }
 
-  if (qrow < p.S) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    bf16* og = static_cast<bf16*>(p.o) + ((long long)b * p.S + qrow) * p.H * HD +
-               (long long)h * HD + half * (HD / 2);
-    const float* orow = Os + r * SM::kLdO + half * (HD / 2);
+  // consumer warpgroups: 64 query rows each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1;
+  const int ct = threadIdx.x % 128;
+  const int warp = ct / 32, lane = ct % 32, g = lane / 4, tq = lane % 4;
+  const bool has_rows = cw < n_wg;
+  const int wrow0 = row0 + cw * kRowsWG;
+  const int r0 = wrow0 + warp * 16 + g, r1 = r0 + 8;   // this thread's rows
+  const int qp0 = p.q_offset + r0, qp1 = p.q_offset + r1;
+  const int wq_first = p.q_offset + wrow0;
+  const int wq_last = p.q_offset + min(wrow0 + kRowsWG, p.S) - 1;
+  int wk_end = p.T;
+  if (p.causal) wk_end = min(wk_end, wq_last + 1);
+  int wk_begin = 0;
+  if (p.window > 0) wk_begin = max(0, wq_first - p.window + 1);
+  // the ring's tiles [it_lo, it_hi) hold keys of these rows
+  int it_lo = 0, it_hi = 0;
+  if (has_rows && wk_end > k_begin) {
+    it_lo = min(n_kv, max(0, (wk_begin - k_begin) / kKeys));
+    it_hi = min(n_kv, (wk_end - k_begin + kKeys - 1) / kKeys);
+  }
+
+  // O accumulator in the wgmma layout: o[4j + e] is row r0 (e < 2) or r1,
+  // column 8j + 2tq + (e & 1)
+  float o[HD / 2];
 #pragma unroll
-    for (int c = 0; c < HD / 2; ++c) og[c] = __float2bfloat16(orow[c] * inv);
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const unsigned char* Qs = smem + SM::q + cw * TL::kTileBytes;
+  // Q as wgmma A fragments in registers, read once from its swizzled
+  // tile (16-byte chunk c of row r sits at chunk c ^ (r's swizzle phase))
+  uint32_t qa[HD / 16][4];
+  if (has_rows) {
+    mbar_wait(qbar, 0);
+    constexpr int kMask = TL::kRowBytes / 16 - 1;
+    const int row = warp * 16 + (lane & 15);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int bx = kk * 16 / TL::kBoxD;
+      const int chunk = (kk * 16 % TL::kBoxD) / 8 + (lane >> 4);
+      const int phase = ((row * TL::kRowBytes) >> 7) & kMask;
+      ldsm_x4(qa[kk], Qs + bx * TL::kBoxBytes + row * TL::kRowBytes +
+                          ((chunk ^ phase) << 4));
+    }
+  }
+
+  auto full_wait = [&](int it) {
+    mbar_wait(bars + 8 * (it % kStages), (it / kStages) & 1);
+  };
+  auto release = [&](int it) {   // one arrival per consumer warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + it % kStages));
+  };
+  // S = Q K^T of ring tile `it` (Q from registers, K K-major), issued
+  auto issue_qk = [&](float (&s)[32], int it) {
+    if constexpr (kAblate == 3) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      return;
+    }
+    const unsigned char* Ks = smem + SM::k + (it % kStages) * TL::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int bx = kk * 16 / TL::kBoxD;
+      const int off = bx * TL::kBoxBytes + (kk * 16 % TL::kBoxD) * 2;
+      wgmma_rs_n64_k(s, qa[kk], make_desc(Ks + off, 16, TL::kSbo, TL::kLayout),
+                     kk > 0);
+    }
+  };
+  // O += P V of ring tile `it` (V is MN-major: the transposed descriptor)
+  auto issue_pv = [&](const uint32_t (&pa)[4][4], int it) {
+    if constexpr (kAblate == 2) return;
+    const unsigned char* Vs = smem + SM::v + (it % kStages) * TL::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int bx = 0; bx < TL::kBoxes; ++bx) {
+        const uint64_t dv =
+            make_desc(Vs + bx * TL::kBoxBytes + kk * 16 * TL::kRowBytes,
+                      TL::kSbo, TL::kSbo, TL::kLayout);
+        float* ob = o + bx * (TL::kBoxD / 2);
+        if constexpr (TL::kBoxD == 64) wgmma_rs_n64(ob, pa[kk], dv);
+        else if constexpr (TL::kBoxD == 32) wgmma_rs_n32(ob, pa[kk], dv);
+        else wgmma_rs_n16(ob, pa[kk], dv);
+      }
+  };
+  // online softmax of tile `it`'s scores in the log2 domain, on the
+  // accumulator fragments: P goes to pa as bf16 A fragments (the
+  // accumulator layout of 16 keys is the A layout of one k-step); returns
+  // the factors that rescale O
+  auto softmax = [&](float (&s)[32], uint32_t (&pa)[4][4], int it,
+                     float& alpha0, float& alpha1) {
+    if constexpr (kAblate == 1) {
+      alpha0 = alpha1 = 1.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      return;
+    }
+    const int k0 = k_begin + it * kKeys;
+    const bool masked = k0 + kKeys > p.T ||
+                        (p.causal && k0 + kKeys - 1 > wq_first) ||
+                        (p.window > 0 && k0 <= wq_last - p.window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;   // of the raw scores
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e];
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * tq + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok = key < p.T;
+          if (p.causal) ok = ok && key <= qp;
+          if (p.window > 0) ok = ok && key > qp - p.window;
+          x = ok ? x : -INFINITY;
+        }
+        s[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // m is kept scaled (log2 domain); the scale is > 0, so it commutes
+    // with the max and folds into one fma per score
+    const float sc = p.scale_log2;
+    const float mn0 = fmaxf(m0, mx0 * sc), mn1 = fmaxf(m1, mx1 * sc);
+    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+    alpha0 = fast_exp2(m0 - base0);
+    alpha1 = fast_exp2(m1 - base1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], sc, -base0));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], sc, -base0));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], sc, -base1));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], sc, -base1));
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  };
+  auto rescale = [&](float alpha0, float alpha1) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= alpha0;
+      o[4 * j + 1] *= alpha0;
+      o[4 * j + 2] *= alpha1;
+      o[4 * j + 3] *= alpha1;
+    }
+  };
+  auto keep = [&](uint32_t (&pa)[4][4]) {   // pa stays live until here
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(pa[kk][r])::"memory");
+  };
+
+  for (int it = 0; it < it_lo; ++it) {   // tiles before these rows' keys
+    full_wait(it);
+    release(it);
+  }
+  if (it_lo < it_hi) {
+    float s[32], alpha0, alpha1;
+    uint32_t pa[4][4], pn[4][4];
+    full_wait(it_lo);
+    wgmma_fence();
+    issue_qk(s, it_lo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(s);
+    softmax(s, pa, it_lo, alpha0, alpha1);
+    // Pipelined: the scores of tile it are computed while P V of tile
+    // it-1 is in flight, and its softmax overlaps that product.
+    for (int it = it_lo + 1; it < it_hi; ++it) {
+      full_wait(it);
+      fence_regs<HD / 2>(o);
+      wgmma_fence();
+      issue_qk(s, it);
+      wgmma_commit();
+      issue_pv(pa, it - 1);
+      wgmma_commit();
+      wgmma_wait<1>();          // the scores are in; P V may still run
+      fence_regs<32>(s);
+      softmax(s, pn, it, alpha0, alpha1);
+      wgmma_wait<0>();
+      fence_regs<HD / 2>(o);
+      keep(pa);
+      release(it - 1);
+      rescale(alpha0, alpha1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pn[kk][r];
+    }
+    fence_regs<HD / 2>(o);
+    wgmma_fence();
+    issue_pv(pa, it_hi - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(o);
+    keep(pa);
+    release(it_hi - 1);
+  }
+  for (int it = max(it_hi, it_lo); it < n_kv; ++it) {  // tiles past them
+    full_wait(it);
+    release(it);
+  }
+
+  if (!has_rows) return;
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  bf16* ob = static_cast<bf16*>(p.o) + (long long)h * HD + 2 * tq;
+  const long long row_stride = (long long)p.H * HD;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (r0 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + ((long long)b * p.S + r0) * row_stride + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (r1 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + ((long long)b * p.S + r1) * row_stride + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
 }
 
+// ---- host side: tensor maps through the driver's entry point ----------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A TMA map over a strided bf16 [B, L, heads, hd] tensor, read in place:
+// boxes of 64 rows of one (batch, head) by box_d columns; rows past L are
+// zero-filled. The three outer dims are ordered by stride; slot[d] gets
+// the coordinate slot of dim d (0 rows, 1 heads, 2 batch).
+int encode_map(CUtensorMap* map, int (&slot)[3], const void* base, int hd,
+               int L, int heads, int B, long long sl, long long sh,
+               long long sb, int box_d, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const long long stride[3] = {sl, sh, sb};
+  const int extent[3] = {L, heads, B};
+  const int box[3] = {kKeys, 1, 1};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t boxes[4] = {(cuuint32_t)box_d, 0, 0, 0};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int d = order[i];
+    dims[i + 1] = (cuuint64_t)extent[d];
+    strides[i] = (cuuint64_t)stride[d] * sizeof(bf16);
+    boxes[i + 1] = (cuuint32_t)box[d];
+    slot[d] = i + 1;
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, boxes, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int HD>
-int launch_tc(const Params& p, cudaStream_t stream) {
-  constexpr int smem = TcSmem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.S + kTcRows - 1) / kTcRows, p.H, p.B);
-  flash_fwd_tc<HD><<<grid, kTcWarps * 32, smem, stream>>>(p);
+int launch_hopper(const Params& p, cudaStream_t stream) {
+  using TL = HopTile<HD>;
+  constexpr int smem = HopSmem<HD>::bytes + 1024;   // + alignment slack
+  const CUtensorMapSwizzle swizzle =
+      TL::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : TL::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  HopParams hp;
+  hp.o = p.o;
+  hp.B = p.B; hp.S = p.S; hp.T = p.T; hp.H = p.H; hp.KV = p.KV;
+  hp.causal = p.causal; hp.window = p.window; hp.q_offset = p.q_offset;
+  hp.scale_log2 = p.scale_log2;
+  CUtensorMap mq, mk, mv;
+  int slot[3];
+  int err = encode_map(&mq, slot, p.q, HD, p.S, p.H, p.B, p.sqs, p.sqh, p.sqb,
+                       TL::kBoxD, swizzle);
+  if (err) return err;
+  hp.q_row = slot[0]; hp.q_head = slot[1]; hp.q_b = slot[2];
+  err = encode_map(&mk, slot, p.k, HD, p.T, p.KV, p.B, p.sks, p.skh, p.skb,
+                   TL::kBoxD, swizzle);
+  if (err) return err;
+  hp.k_row = slot[0]; hp.k_head = slot[1]; hp.k_b = slot[2];
+  err = encode_map(&mv, slot, p.v, HD, p.T, p.KV, p.B, p.svs, p.svh, p.svb,
+                   TL::kBoxD, swizzle);
+  if (err) return err;
+  hp.v_row = slot[0]; hp.v_head = slot[1]; hp.v_b = slot[2];
+  static bool attr_set = false;   // once per process and head dim
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_hopper<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid(p.H, (p.S + kHopRows - 1) / kHopRows, p.B);
+  flash_fwd_hopper<HD><<<grid, kHopThreads, smem, stream>>>(mq, mk, mv, hp);
   return (int)cudaGetLastError();
 }
 
 int dispatch_bf16(int hd, const Params& p, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_tc<32>(p, stream);
-    case 64: return launch_tc<64>(p, stream);
-    case 80: return launch_tc<80>(p, stream);
-    case 128: return launch_tc<128>(p, stream);
+    case 32: return launch_hopper<32>(p, stream);
+    case 64: return launch_hopper<64>(p, stream);
+    case 80: return launch_hopper<80>(p, stream);
+    case 128: return launch_hopper<128>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

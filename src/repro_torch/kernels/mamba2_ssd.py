@@ -5,10 +5,13 @@ zamba2-2.7b's backbone runs this recurrence in each of its 54 Mamba2
 layers at prefill; the final states are the fixed-size part of its
 handoff to decode. The kernel (``csrc/mamba2_ssd.cu``) replaces the
 Pallas TPU kernel ``repro/kernels/mamba2_ssd.py::_ssd_kernel``; its
-header says what bounds it on the H100 and how it is laid out. It scans
-step by step and masks its ragged tail, so it takes any T and has no
-chunk of its own. The wrapper takes the plain version only for CPU
-tensors; for a CUDA tensor it launches the kernel or raises.
+header says what bounds it on the H100 and how it is laid out. For bf16
+at zamba2's shape (N 64, P a multiple of 64) it runs the chunked SSD
+form on the tensor cores in chunks of its own (64 steps, whatever chunk
+the caller pads to); f32 and other shapes scan step by step. Both mask
+their ragged tail, so it takes any T. One call is one launch. The
+wrapper takes the plain version only for CPU tensors; for a CUDA tensor
+it launches the kernel or raises.
 """
 from __future__ import annotations
 

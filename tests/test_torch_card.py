@@ -31,6 +31,8 @@ def card():
 @pytest.mark.parametrize("S,T,H,KV,hd,window", [
     (200, 200, 8, 2, 64, 0), (77, 333, 4, 4, 32, 0), (300, 300, 6, 2, 128, 40),
     (130, 130, 4, 4, 80, 0), (96, 160, 4, 4, 80, 24),
+    (17, 17, 24, 8, 128, 0),          # one partial tile
+    (1024, 1024, 32, 32, 80, 0),      # zamba2's shared block, both masks
 ])
 def test_flash_kernel_matches_plain(card, dtype, S, T, H, KV, hd, window):
     q = torch.randn(2, S, H, hd, generator=card, device="cuda").to(dtype)
@@ -124,6 +126,9 @@ def test_rwkv6_kernel_matches_plain(card, dtype, B, T, NH, hd, w_lo, w_hi):
     (1, 1024, 80, 64, 64),            # zamba2's prefill shape
     (2, 45, 3, 32, 16),               # ragged T
     (1, 96, 2, 16, 128),
+    (2, 1024, 80, 64, 64),            # B = 2
+    (1, 37, 80, 64, 64),              # one partial chunk
+    (1, 1, 80, 64, 64),               # a single step
 ])
 def test_mamba2_kernel_matches_plain(card, dtype, B, T, NH, P, N):
     x = _rand(card, (B, T, NH, P)).to(dtype)
@@ -135,6 +140,26 @@ def test_mamba2_kernel_matches_plain(card, dtype, B, T, NH, P, N):
     y, s = mamba2_ssd.mamba2_ssd(x, dt, A, Bm, Cm, D, s0)
     y_ref, s_ref = ref.mamba2_ssd_ref(x, dt, A, Bm, Cm, D, s0)
     tol = 5 * TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, s_ref, atol=5e-4, rtol=5e-4)
+
+
+def test_mamba2_kernel_takes_unaligned_bf16_inputs(card):
+    """bf16 x, B and C whose strides are not 16-byte multiples leave the
+    chunked kernel (it copies 16-byte pieces) for the step kernel; one
+    launch either way, and both match the plain version."""
+    B, T, NH, P, N = 2, 100, 4, 64, 64
+    x = _rand(card, (B, T, NH, P + 1)).bfloat16()[..., 1:]
+    bc = _rand(card, (B, T, 2 * N + 1)).bfloat16()
+    Bm, Cm = bc[..., 1:N + 1], bc[..., N + 1:]
+    dt = torch.nn.functional.softplus(_rand(card, (B, T, NH)) - 2.0)
+    A = -torch.linspace(1.0, 16.0, NH, device="cuda")
+    D, s0 = _rand(card, (NH,)), _rand(card, (B, NH, N, P))
+    before = mamba2_ssd.mamba2_ssd.launches
+    y, s = mamba2_ssd.mamba2_ssd(x, dt, A, Bm, Cm, D, s0)
+    assert mamba2_ssd.mamba2_ssd.launches == before + 1
+    y_ref, s_ref = ref.mamba2_ssd_ref(x, dt, A, Bm, Cm, D, s0)
+    tol = 5 * TOL[torch.bfloat16]
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(s, s_ref, atol=5e-4, rtol=5e-4)
 

@@ -211,6 +211,114 @@ def test_mamba2_step_matches_scan():
 
 
 # ----------------------------------------------------------------------
+# the CUDA kernel's chunked plan for bf16 (csrc/mamba2_ssd.cu)
+# ----------------------------------------------------------------------
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+def ssd_chunked(x, dt, A, B_mat, C_mat, D=None, state=None, *, chunk=64,
+                bf16=False, split=True):
+    """A plain mirror of ``ssd_chunked`` in csrc/mamba2_ssd.cu, used only
+    by these tests. Per chunk of ``chunk`` steps, in order, with L the
+    cumulative sum of A dt within the chunk:
+
+      y = exp(L_t) C S + ((C B^T) o M) x + D x,  M[t,s] = exp(L_t - L_s) dt_s
+      S = exp(L_C) S + (B o exp(L_C - L) dt)^T x
+
+    in f32. With ``bf16`` the three f32 operands that the kernel hands to
+    the bf16 tensor cores (C B^T o M, S and the carry weights) are rounded
+    as it rounds them: split into hi = bf16(v) and lo = bf16(v - hi), or
+    rounded once to bf16 when not ``split``."""
+    Bsz, T, NH, P = x.shape
+    N = B_mat.shape[-1]
+    S = (torch.zeros((Bsz, NH, N, P)) if state is None
+         else state.float().clone())
+
+    def operand(v):
+        if not bf16:
+            return v
+        hi = _bf16(v)
+        return hi + _bf16(v - hi) if split else hi
+
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B_mat.float(), C_mat.float()
+    ys = []
+    for t0 in range(0, T, chunk):
+        xc = xf[:, t0:t0 + chunk].transpose(1, 2)              # [B,NH,c,P]
+        dc = dtf[:, t0:t0 + chunk].transpose(1, 2)             # [B,NH,c]
+        bc, cc = Bf[:, t0:t0 + chunk], Cf[:, t0:t0 + chunk]    # [B,c,N]
+        L = torch.cumsum(A.float()[None, :, None] * dc, -1)
+        causal = torch.ones(dc.shape[-1], dc.shape[-1], dtype=torch.bool).tril()
+        M = torch.exp((L[..., :, None] - L[..., None, :])
+                      .masked_fill(~causal, -torch.inf)) * dc[..., None, :]
+        G = torch.einsum("btn,bsn->bts", cc, bc)[:, None]
+        y = operand(G * M) @ xc
+        y = y + torch.exp(L)[..., None] * torch.einsum(
+            "btn,bhnp->bhtp", cc, operand(S))
+        if D is not None:
+            y = y + D.float()[None, :, None, None] * xc
+        ys.append(y.transpose(1, 2))
+        w = torch.exp(L[..., -1:] - L) * dc                    # [B,NH,c]
+        W = operand(bc[:, None] * w[..., None])                # [B,NH,c,N]
+        S = (torch.exp(L[..., -1])[..., None, None] * S
+             + W.transpose(-1, -2) @ xc)
+    y = torch.cat(ys, 1) if ys else xf.new_zeros((Bsz, 0, NH, P))
+    return y.to(x.dtype), S
+
+
+def _ssd_plan_inputs(seed, B, T, NH, P, N, carried, bf16):
+    """_mamba_inputs plus a state; with ``bf16``, x, B and C are rounded
+    to bf16 first, so the reference computes in f32 on the very values
+    the kernel is given."""
+    jx, tx = _mamba_inputs(seed, B, T, NH, P, N)
+    x, dt, A, Bm, Cm, D = tx
+    s0 = (torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, NH, N, P)).astype(np.float32)) if carried else None)
+    if bf16:
+        x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+        jx = [_pair(t.float().numpy())[0] for t in (x, dt, A, Bm, Cm, D)]
+    js = None if s0 is None else _pair(s0.numpy())[0]
+    return jx, js, (x, dt, A, Bm, Cm, D), s0
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16-operands"])
+@pytest.mark.parametrize("B,T,NH,P,N,carried", [
+    (1, 256, 2, 32, 16, False),      # chunks of 64 against the Pallas 256
+    (1, 37, 2, 32, 16, True),        # T < C
+    (2, 150, 3, 64, 64, True),       # T not a multiple of C, B = 2
+    (1, 1, 2, 32, 16, True),         # a single step
+])
+def test_mamba2_chunked_plan_vs_reference(B, T, NH, P, N, carried, bf16):
+    """The kernel's plan in chunks of 64 holds the sequential reference to
+    y 2e-2 and state 2e-4 with its bf16 rounding emulated, and to 2e-4 in
+    f32; against the Pallas kernel at chunk 256 (which sums in another
+    order) to the reference's own 1e-3."""
+    jx, js, tx, s0 = _ssd_plan_inputs(B * 1000 + T + N, B, T, NH, P, N,
+                                      carried, bf16)
+    y, s = ssd_chunked(*tx, s0, chunk=64, bf16=bf16)
+    assert y.shape == (B, T, NH, P) and y.dtype == tx[0].dtype
+    y_ref, s_ref = r_ref.mamba2_ssd_ref(*jx, js)
+    _close(y, y_ref, 2e-2 if bf16 else TOL)
+    _close(s, s_ref, TOL)
+    y_p, s_p = r_ops.mamba2(*jx, js, chunk=256, backend="pallas_interpret")
+    _close(y, y_p, 2e-2 if bf16 else PALLAS_TOL["mamba2"])
+    _close(s, s_p, PALLAS_TOL["mamba2"])
+
+
+def test_mamba2_chunked_plan_needs_the_split():
+    """Why the kernel splits its f32 operands in two bf16 terms: rounded
+    once, the carry misses the state tolerance by an order of magnitude."""
+    jx, js, tx, s0 = _ssd_plan_inputs(5, 1, 150, 3, 64, 64, True, True)
+    _, s_ref = r_ref.mamba2_ssd_ref(*jx, js)
+    want = np.asarray(s_ref, np.float32)
+    _, s_split = ssd_chunked(*tx, s0, bf16=True)
+    _, s_once = ssd_chunked(*tx, s0, bf16=True, split=False)
+    _close(s_split, s_ref)
+    err_once = np.abs(s_once.numpy() - want) / (TOL + TOL * np.abs(want))
+    assert err_once.max() > 10
+
+
+# ----------------------------------------------------------------------
 # the padding contract, the wrappers' checks, dispatch
 # ----------------------------------------------------------------------
 def test_padding_is_a_no_op():
