@@ -13,7 +13,11 @@ Phases, each fatal on failure (the script exits non-zero):
      version's time, the card's bound and the share of it reached, for
      flash attention ``scaled_dot_product_attention``'s time as a
      yardstick the port never calls, and each instance's registers and
-     spills from the build;
+     spills from the build; paged at the main shape, at long and ragged
+     contexts (32K), B=1 at 8K, B=32 and command-r's G=8, each with its
+     split plan, a second time after a flush that leaves no dirty lines
+     in L2, and SDPA on a padded contiguous copy (not the same function)
+     as a yardstick;
   3. serving: three archs at full width and depth in bf16 with seeded
      random weights, one after the other (each freed before the next):
      llama32-3b (28 layers), rwkv6-3b (32) and zamba2-2.7b (54); 4
@@ -41,8 +45,9 @@ before its last line, which is
 
 Two diagnostics, which print their JSON line and the card instead:
 ``--windows DIR`` times phase 3's prefill and decode step (and the flash
-wrapper's host time) of the checkout at DIR, so that two checkouts are
-compared in one call with one yardstick; ``--flash-ablation`` times the
+wrapper's host time, and the paged kernel at five shapes) of the
+checkout at DIR, so that two checkouts are compared in one call with one
+yardstick; ``--flash-ablation`` times the
 bf16 flash kernel built with one part switched off at a time.
 """
 from __future__ import annotations
@@ -199,6 +204,35 @@ def paged_cases():
     yield "mha", 4, 8, 8, 128, 16, [1, 17, 530, 1056]
     yield "g7-hd64", 3, 14, 2, 64, 16, [16, 300, 777]
     yield "hd32", 2, 4, 2, 32, 8, [5, 64]
+    yield "long", 4, 24, 8, 128, 16, [32768, 30001, 16384, 1]
+    yield "B1-8k", 1, 24, 8, 128, 16, [8192]
+    yield "B32", 32, 24, 8, 128, 16, list(range(1024, 1088, 2))
+    yield "g8-hd128", 4, 64, 8, 128, 16, [1025, 1040, 1049, 1056]  # command-r
+
+
+def paged_inputs(torch, g, dt, B, H, KV, hd, page, lens):
+    """Random q and pages, a shuffled block table of just enough pages
+    for the longest length, and the lengths, on the card."""
+    max_pages = -(-max(lens) // page)
+    P = B * max_pages + 7
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+    kp = torch.randn(P, page, KV, hd, generator=g, device="cuda").to(dt)
+    vp = torch.randn(P, page, KV, hd, generator=g, device="cuda").to(dt)
+    perm = torch.randperm(P, generator=g, device="cuda")
+    bt = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, sl
+
+
+def paged_bound(q, bt, sl, KV, lens, dtype_name):
+    """The paged kernel's bound: each live K/V row and q read once, the
+    output written once, the table and lengths read; 4 operations per
+    (query head, live token, dim)."""
+    H, hd = q.shape[1], q.shape[2]
+    live = sum(lens)
+    nbytes = (2 * live * KV * hd + 2 * q.numel()) * q.element_size() \
+        + bt.numel() * 4 + sl.numel() * 4
+    return bound(4.0 * H * hd * live, nbytes, dtype_name)
 
 
 def rwkv6_cases():
@@ -230,6 +264,27 @@ def flash_pairs(q_offset, S, T, causal, window) -> int:
     return total
 
 
+def short(lens) -> str:
+    return str(lens) if len(lens) <= 4 else f"[{lens[0]}..{lens[-1]}]"
+
+
+def sdpa_padded_ms(torch, F, args, flush) -> float:
+    """SDPA's time on a contiguous [B, KV, T, hd] copy of the pages of
+    each row, T the longest length, no mask: what a library reads for a
+    padded batch, not paged attention."""
+    q, kp, vp, bt, sl = args
+    B, H, hd = q.shape
+    KV, T = kp.shape[2], int(sl.max())
+
+    def padded(pages):
+        return pages[bt.long()].reshape(B, -1, KV, hd)[:, :T].transpose(
+            1, 2).contiguous()
+    k, v = padded(kp), padded(vp)
+    qs = q[:, :, None]
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, k, v, enable_gqa=True), flush=flush)
+
+
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -249,7 +304,9 @@ def phase_kernels(torch):
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
+    clean_flush = flush_buf.max       # evicts without leaving dirty lines
     g = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
@@ -305,39 +362,47 @@ def phase_kernels(torch):
             del q, k, v, out, want
 
         for label, B, H, KV, hd, page, lens in paged_cases():
-            max_pages = -(-max(lens) // page)
-            P = B * max_pages + 7
-            q = randn(B, H, hd).to(dt)
-            kp = randn(P, page, KV, hd).to(dt)
-            vp = randn(P, page, KV, hd).to(dt)
-            perm = torch.randperm(P, generator=g, device="cuda")
-            bt = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
-            sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            out = paged_decode.paged_attention(q, kp, vp, bt, sl)
-            want = ref.paged_attention_ref(q, kp, vp, bt, sl)
+            q, kp, vp, bt, sl = args = paged_inputs(torch, g, dt, B, H, KV,
+                                                    hd, page, lens)
+            out = paged_decode.paged_attention(*args)
+            want = ref.paged_attention_ref(*args)
             torch.cuda.synchronize()
             err = max_err(torch, out, want)
             ok = within(torch, out, want, tol)
-            ms = cuda_ms(torch, lambda: paged_decode.paged_attention(
-                q, kp, vp, bt, sl), flush=flush)
-            plain_ms = cuda_ms(torch, lambda: ref.paged_attention_ref(
-                q, kp, vp, bt, sl), reps=5, warmup=1)
-            live = sum(lens)
-            flops = 4.0 * H * hd * live
-            nbytes = (2 * live * KV * hd + 2 * q.numel()) * q.element_size() \
-                + bt.numel() * 4 + sl.numel() * 4
-            b_ms, b_by = bound(flops, nbytes, dtype_name)
+            ms = cuda_ms(torch, lambda: paged_decode.paged_attention(*args),
+                         flush=flush)
+            clean_ms = cuda_ms(torch, lambda: paged_decode.paged_attention(
+                *args), flush=clean_flush)
+            plain_ms = cuda_ms(torch, lambda: ref.paged_attention_ref(*args),
+                               reps=5, warmup=1)
+            b_ms, b_by = paged_bound(q, bt, sl, KV, lens, dtype_name)
+            splits, split_pages = paged_decode.split_plan(
+                B, KV, bt.shape[1], page, hd * q.element_size(), sms)
             log(f"paged {label:9s} {dtype_name:8s} B={B} H={H} KV={KV} "
-                f"hd={hd} page={page} seq_lens={lens}: "
-                f"max_abs_err={err:.3e} (tol {tol}) kernel {ms:.4f} ms, "
+                f"hd={hd} page={page} seq_lens={short(lens)}: "
+                f"{splits} splits of {split_pages} pages; "
+                f"max_abs_err={err:.3e} (tol {tol}) kernel {ms:.4f} ms "
+                f"({clean_ms:.4f} ms after a read-only flush), "
                 f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"{b_ms / ms:.1%} of it")
+                f"{b_ms / ms:.1%} of it ({b_ms / clean_ms:.1%})")
             require(ok, f"paged {label} {dtype_name}: max_abs_err {err:.3e} "
                         f"over tolerance {tol}")
+            if dtype_name == "bfloat16":
+                log(f"paged {label:9s} yardstick, not the same function: "
+                    f"SDPA (enable_gqa) on a contiguous copy of K/V padded "
+                    f"to the longest length "
+                    f"{sdpa_padded_ms(torch, F, args, flush):.4f} ms")
+            if label == "main":
+                host = wrapper_host_ms(torch, lambda: (
+                    paged_decode.paged_attention(*args)))
+                log(f"paged main {dtype_name}: wrapper host time "
+                    f"{host:.4f} ms per call (checks, plan, output, "
+                    f"workspace, launch)")
             if label == "main" and dtype_name == "bfloat16":
                 rows["paged_attention"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
+            del q, kp, vp, bt, sl, args, out, want
 
         for label, B, T, NH, hd, carried in rwkv6_cases():
             r, k, v = (randn(B, T, NH, hd).to(dt) for _ in range(3))
@@ -798,7 +863,8 @@ def phase_parity(torch):
 # ----------------------------------------------------------------------
 def windows_only(torch) -> dict:
     """``--windows DIR``: phase 3's prefill and decode-step times of each
-    arch, and the flash wrapper's host time at the main shape, for the
+    arch, the flash wrapper's host time at the main shape and the paged
+    kernel's times (``paged_windows``), for the
     checkout whose ``src`` is on the path, with this script's yardsticks.
     Run on two checkouts in one call, it compares them like for like."""
     from repro_torch.configs import get_config
@@ -814,6 +880,7 @@ def windows_only(torch) -> dict:
         torch, lambda: flash_prefill.flash_attention(q, k, v, causal=True))
     log(f"flash main bfloat16: wrapper host time "
         f"{out['flash_wrapper_host_ms']:.4f} ms per call")
+    out["paged"] = paged_windows(torch, g)
     for arch in ARCHS:
         cfg = get_config(arch)
         model = get_model(cfg)
@@ -829,6 +896,38 @@ def windows_only(torch) -> dict:
         del model, params, prefill, step
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def paged_windows(torch, g) -> dict:
+    """The paged kernel of the checkout on the path, bf16, at the main
+    shape, with the lengths x4 (``x4``), at B=16 with the live bytes of
+    ``x4`` (``B16``), and at the ``long`` and ``B1-8k`` shapes of phase 2:
+    kernel ms (cold L2, as phase 2) beside the bound, and the wrapper's
+    host time at the main shape."""
+    from repro_torch.kernels import paged_decode
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    main = [1025, 1040, 1049, 1056]
+    cases = {"main": (4, main), "x4": (4, [4 * n for n in main]),
+             "B16": (16, main * 4),
+             "long": (4, [32768, 30001, 16384, 1]), "B1-8k": (1, [8192])}
+    out = {}
+    for label, (B, lens) in cases.items():
+        args = paged_inputs(torch, g, torch.bfloat16, B, 24, 8, 128, 16,
+                            lens)
+        ms = cuda_ms(torch, lambda: paged_decode.paged_attention(*args),
+                     flush=flush)
+        b_ms, _ = paged_bound(args[0], args[3], args[4], 8, lens, "bfloat16")
+        out[label] = dict(ms=ms, bound_ms=b_ms)
+        if label == "main":
+            out[label]["wrapper_host_ms"] = wrapper_host_ms(
+                torch, lambda: paged_decode.paged_attention(*args))
+        log(f"paged {label:5s} bfloat16 B={B} H=24 KV=8 hd=128 page=16 "
+            f"seq_lens={short(lens)}: kernel {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms, {b_ms / ms:.1%} of it"
+            + (f"; wrapper host time {out[label]['wrapper_host_ms']:.4f} ms"
+               if label == "main" else ""))
+        del args
     return out
 
 

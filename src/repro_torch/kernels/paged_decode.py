@@ -1,17 +1,23 @@
-"""Paged attention for the decode stage: the CUDA kernel's wrapper and
-its plain torch version.
+"""Paged attention for the decode stage: the CUDA kernel's wrapper, its
+split plan and its plain torch version.
 
 Decode is the memory-bound stage (paper section II-A) and sets TPOT; the
 paged KV cache is vLLM PagedAttention, the paper's serving system. The
 kernel (``csrc/paged_decode.cu``) replaces the Pallas TPU kernel
-``repro/kernels/paged_decode.py::_paged_kernel``; its header says what
-bounds it on the H100 and how it is laid out. The wrapper takes the
-plain version only for CPU tensors; for a CUDA tensor it launches the
-kernel or raises.
+``repro/kernels/paged_decode.py::_paged_kernel`` and is split-KV: each
+row's page walk is cut into runs of whole pages (``split_plan``, from
+sizes the host knows, never from ``seq_lens``, which lives on the card),
+one block per (run, kv head, sequence), and the last run of a row to
+finish merges the runs' partial softmax states in the same launch. Its
+header says what bounds it on the H100 and how it is laid out. The
+wrapper takes the plain version only for CPU tensors; for a CUDA tensor
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -23,8 +29,73 @@ HEAD_DIMS = (32, 64, 128)   # a multiple of 32: each lane holds hd/32 dims
 MAX_GROUP = 8               # query heads per kv head the kernel holds
 
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-_ARGTYPES = [_i, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-             _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _p]
+_ARGTYPES = [_i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+             _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _p]
+
+# The split plan. The kernel runs one block per SM (its cp.async rings
+# fill the shared memory), and a block's start and the merge of partials
+# cost about as much as streaming a few hundred KB, so a row is split
+# only when its K and V for one kv head exceed MAX_SPLIT_BYTES; a row
+# split anyway (the merges are paid then) is cut into runs for about
+# FILL_PER_SM blocks per SM over the batch, fine enough to balance
+# ragged batches: never below MIN_SPLIT_TOKENS a run, and at most
+# MAX_SPLIT_PAGES pages (the kernel's shared-memory slice of the block
+# table) or MAX_SPLITS runs (the partials its merge weighs) a row. Tuned
+# on the H100 (PERF.md).
+MAX_SPLIT_BYTES = 640 << 10
+FILL_PER_SM = 0.5
+MIN_SPLIT_TOKENS = 64
+MAX_SPLIT_PAGES = 256
+MAX_SPLITS = 512
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(B: int, KV: int, max_pages: int, page: int, row_bytes: int,
+               sms: int) -> Tuple[int, int]:
+    """(splits, split_pages): each block-table row of ``max_pages`` pages
+    is walked as ``splits`` runs of ``split_pages`` whole pages (the last
+    run may be shorter; none is empty), one block per run, kv head and
+    sequence. ``row_bytes``: one K row of one kv head (hd x element
+    size). Host-known sizes only: the lengths are on the card."""
+    if max_pages <= 0:
+        return 1, 1
+    lo = max(1, -(-MIN_SPLIT_TOKENS // page))
+    hi = max(lo, min(MAX_SPLIT_PAGES,
+                     MAX_SPLIT_BYTES // (2 * row_bytes * page)))
+    splits = -(-max_pages // hi)                 # runs the bytes ask for
+    if splits > 1:
+        splits = max(splits, min(round(FILL_PER_SM * sms / (B * KV)),
+                                 -(-max_pages // lo)))
+    split_pages = max(-(-max_pages // splits), -(-max_pages // MAX_SPLITS))
+    if split_pages > MAX_SPLIT_PAGES:
+        raise ValueError(f"paged_attention: {max_pages} pages a row is over "
+                         f"the kernel's {MAX_SPLITS * MAX_SPLIT_PAGES}")
+    return -(-max_pages // split_pages), split_pages
+
+
+_sms: Dict[int, int] = {}
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _sms.get(idx)
+    if n is None:
+        n = _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def _ticket_counters(device: torch.device, stream: int, n: int):
+    """B*KV int32 counters, zero between calls (the kernel resets the ones
+    it uses), kept per device and stream: zeroed once, grown on demand."""
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def _check(q, k_pages, v_pages, block_table, seq_lens):
@@ -72,18 +143,28 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
-    page, KV = k_pages.shape[1], k_pages.shape[2]
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    page, KV = k_pages.shape[1], k_pages.shape[2]
+    splits, split_pages = split_plan(B, KV, block_table.shape[1], page,
+                                     hd * q.element_size(),
+                                     _sm_count(q.device))
     launch = _build.launcher("paged_decode", "paged_decode_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws = tickets = None
+        if splits > 1:   # partials, from the caching allocator
+            ws = torch.empty((B, KV, splits, H // KV, hd + 2),
+                             dtype=torch.float32, device=q.device)
+            tickets = _ticket_counters(q.device, stream, B * KV)
         launch(_DTYPES[q.dtype], hd, q.data_ptr(), k_pages.data_ptr(),
                v_pages.data_ptr(), block_table.data_ptr(),
-               seq_lens.data_ptr(), out.data_ptr(), B, H, KV, page,
-               block_table.shape[1], q.stride(0), q.stride(1),
-               *k_pages.stride()[:3], *v_pages.stride()[:3],
+               seq_lens.data_ptr(), out.data_ptr(),
+               None if ws is None else ws.data_ptr(),
+               None if tickets is None else tickets.data_ptr(), B, H, KV,
+               page, block_table.shape[1], splits, split_pages, q.stride(0),
+               q.stride(1), *k_pages.stride()[:3], *v_pages.stride()[:3],
                block_table.stride(0), stream)
     paged_attention.launches += 1
     return out

@@ -66,6 +66,58 @@ def test_paged_kernel_matches_plain(card, dtype, H, KV, hd, page):
         atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _paged_case(card, dtype, B, H, KV, hd, page, lens, max_pages=None):
+    """Random q and pages, a shuffled block table of ``max_pages`` pages
+    (default: enough for the longest length) and the lengths."""
+    max_pages = max_pages or -(-max(lens) // page)
+    P = B * max_pages + 7
+    q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
+    kp = torch.randn(P, page, KV, hd, generator=card, device="cuda").to(dtype)
+    vp = torch.randn(P, page, KV, hd, generator=card, device="cuda").to(dtype)
+    bt = torch.randperm(P, generator=card, device="cuda")[:B * max_pages]
+    bt = bt.reshape(B, max_pages).to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, sl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,hd,page,lens,max_pages", [
+    (1, 24, 8, 128, 16, [8192], None),              # B=1 at 8K: many splits
+    (3, 8, 2, 64, 16, [1, 40, 2000], 256),          # empty trailing splits
+    (2, 16, 8, 64, 16, [1, 1], 64),                 # len 1
+    (4, 24, 8, 128, 16, [1024] * 4, 64),            # a full block table
+    (2, 56, 8, 128, 16, [777, 3001], None),         # G 7 (yi-34b)
+    (2, 64, 8, 128, 16, [1500, 129], None),         # G 8 (command-r-35b)
+    (3, 12, 4, 64, 8, [5, 700, 1601], None),        # page 8
+    (3, 12, 4, 32, 32, [31, 32, 4000], None),       # page 32
+    (2, 8, 2, 128, 16, [5000, 100], 64),            # clamped to max_pages
+])
+def test_paged_split_kernel_matches_plain(card, dtype, B, H, KV, hd, page,
+                                          lens, max_pages):
+    args = _paged_case(card, dtype, B, H, KV, hd, page, lens, max_pages)
+    before = paged_decode.paged_attention.launches
+    out = paged_decode.paged_attention(*args)
+    assert paged_decode.paged_attention.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), ref.paged_attention_ref(*args).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_paged_split_tickets_reset(card):
+    """The last split of a row resets its ticket: the same call twice, and
+    again after a call of another shape, gives the same bits."""
+    a = _paged_case(card, torch.bfloat16, 4, 24, 8, 128, 16,
+                    [1025, 1040, 1049, 1056])
+    b = _paged_case(card, torch.bfloat16, 1, 24, 8, 128, 16, [8192])
+    first = paged_decode.paged_attention(*a)
+    assert torch.equal(paged_decode.paged_attention(*a), first)
+    paged_decode.paged_attention(*b)
+    assert torch.equal(paged_decode.paged_attention(*a), first)
+    torch.testing.assert_close(first.float(),
+                               ref.paged_attention_ref(*a).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
 def test_wrappers_reject_bad_inputs(card):
     q = torch.zeros(1, 8, 2, 96, device="cuda")
     with pytest.raises(ValueError, match="head dim 96"):
