@@ -10,7 +10,9 @@ Phases, each fatal on failure (the script exits non-zero):
      f32, at the shapes of the main paths and around them (flash at hd
      128 and hd 80, ragged lengths, partial tiles, carried states, B=2,
      single steps), with times (median of CUDA events), the plain
-     version's time, the card's bound and the share of it reached, for
+     version's time, the card's bound and the share of it reached (the
+     rwkv6 scan also at decays near 0 and near 1, T 37 and T 1, each line
+     naming the kernel that ran, chunked or step), for
      flash attention ``scaled_dot_product_attention``'s time as a
      yardstick the port never calls, and each instance's registers and
      spills from the build; paged at the main shape, at long and ragged
@@ -31,7 +33,8 @@ Phases, each fatal on failure (the script exits non-zero):
      kernel-free recompute built from ``kernels/ref.py``, and times one
      prefill and one decode step (CUDA-event windows behind a ~20 ms and
      a ~100 ms spin, wall, and the device operations of a profiler
-     trace) and one state store+fetch per medium;
+     trace) and one state's store and fetch per medium, apart, with the
+     filesystem that holds the disk medium's scratch directory;
   4. parity: f32 at full width and reduced depth (llama32-3b 4 layers,
      rwkv6-3b 4, zamba2-2.7b 12, i.e. 2 groups), TF32 off, must give
      identical token streams in all five setups, and teacher-forced
@@ -43,16 +46,19 @@ before its last line, which is
 
   python3 chip_smoke.py            # from the repository root
 
-Two diagnostics, which print their JSON line and the card instead:
-``--windows DIR`` times phase 3's prefill and decode step (and the flash
-wrapper's host time, and the paged kernel at five shapes) of the
+Three diagnostics, which print their JSON line and the card instead:
+``--windows DIR`` times phase 3's prefill and decode step, store and
+fetch per medium (and the flash wrapper's host time, and the paged
+kernel at five shapes) of the
 checkout at DIR, so that two checkouts are compared in one call with one
-yardstick; ``--flash-ablation`` times the
-bf16 flash kernel built with one part switched off at a time.
+yardstick; ``--flash-ablation`` and ``--rwkv6-ablation`` time the bf16
+flash kernel or the chunked rwkv6 kernel built with one part switched
+off at a time.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
 import statistics
@@ -235,12 +241,21 @@ def paged_bound(q, bt, sl, KV, lens, dtype_name):
     return bound(4.0 * H * hd * live, nbytes, dtype_name)
 
 
-def rwkv6_cases():
-    # (label, B, T, NH, hd, carried): rwkv6-3b's prefill is B=1, T=1024
-    yield "main", 1, 1024, 40, 64, False
-    yield "ragged", 1, 1000, 40, 64, False
-    yield "B4", 4, 1024, 40, 64, False
-    yield "carried", 1, 1024, 40, 64, True
+def rwkv6_cases(dtype_name):
+    # (label, B, T, NH, hd, carried, w range or None for the model's
+    # decay): rwkv6-3b's prefill is B=1, T=1024
+    yield "main", 1, 1024, 40, 64, False, None
+    yield "ragged", 1, 1000, 40, 64, False, None
+    yield "B4", 4, 1024, 40, 64, False, None
+    yield "carried", 1, 1024, 40, 64, True, None
+    yield "near0", 1, 1024, 40, 64, True, (1e-6, 1e-3)
+    if dtype_name == "bfloat16":
+        # in f32 the state grows to |S| ~ 100 here, and any two f32 orders
+        # of the recurrence (the step kernel, the plain scan) differ in y
+        # by ~1e-3 where y is near 0, over the f32 tolerance of 2e-4
+        yield "near1", 1, 1024, 40, 64, True, (0.999, 1.0)
+    yield "short", 1, 37, 40, 64, True, None
+    yield "one", 1, 1, 40, 64, True, None
 
 
 def mamba2_cases():
@@ -404,10 +419,16 @@ def phase_kernels(torch):
                     bound_by=b_by, library_ms=None)
             del q, kp, vp, bt, sl, args, out, want
 
-        for label, B, T, NH, hd, carried in rwkv6_cases():
+        for label, B, T, NH, hd, carried, w_range in rwkv6_cases(dtype_name):
             r, k, v = (randn(B, T, NH, hd).to(dt) for _ in range(3))
-            # the model's decay exp(-exp(w0 + lora)), w0 = -1
-            w = torch.exp(-torch.exp(0.5 * randn(B, T, NH, hd) - 1.0))
+            if w_range is None:
+                # the model's decay exp(-exp(w0 + lora)), w0 = -1
+                w = torch.exp(-torch.exp(0.5 * randn(B, T, NH, hd) - 1.0))
+            else:
+                lo, hi = w_range
+                w = lo + (hi - lo) * torch.rand(B, T, NH, hd, generator=g,
+                                                device="cuda")
+            which = rwkv6_scan.kernel_for(r, k, v, w)
             u = 0.1 * randn(NH, hd)
             s0 = randn(B, NH, hd, hd) if carried else None
             if carried:
@@ -431,13 +452,16 @@ def phase_kernels(torch):
                 (s.numel() * 4 if carried else 0)
             b_ms, b_by = bound(flops, nbytes, dtype_name)
             log(f"rwkv6 {label:9s} {dtype_name:8s} B={B} T={T} NH={NH} "
-                f"hd={hd} carried={carried}: max_abs_err={err:.3e} "
+                f"hd={hd} carried={carried} w={w_range or 'model'} "
+                f"[{which} kernel]: max_abs_err={err:.3e} "
                 f"(tol {tol}, state {TOL['float32']}) kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"{b_ms / ms:.1%} of it")
             require(ok, f"rwkv6 {label} {dtype_name}: max_abs_err "
                         f"{err:.3e} over tolerance")
             if label == "main" and dtype_name == "bfloat16":
+                require(which == "chunked", "rwkv6 main bfloat16 did not "
+                                            "take the chunked kernel")
                 rows["rwkv6_scan"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
@@ -759,10 +783,29 @@ def log_windows(name: str, times: dict) -> None:
             f"{t['wall']:.3f} ms; profiler {busy}")
 
 
+def store_fetch_ms(torch, path, payload, reps: int = 5):
+    """Median host times in ms of ``path.store(payload)`` and of the
+    ``fetch`` of its handle, each synchronised, after one warm-up."""
+    stores, fetches = [], []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = path.store(payload)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path.fetch(handle)
+        torch.cuda.synchronize()
+        if i:
+            stores.append((t1 - t0) * 1e3)
+            fetches.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(stores), statistics.median(fetches)
+
+
 def component_times(torch, model, params, cfg, prompts, outs):
     """Times of one prefill and one B=4 decode step at the main path's
-    shapes (``window_times``), and the store+fetch of one sequence's
-    handoff payload per medium (host clock), checked bit-exact."""
+    shapes (``window_times``), and the store and the fetch of one
+    sequence's handoff payload per medium (host clock), checked
+    bit-exact."""
     from repro_torch.core import make_path
     from repro_torch.core.transfer import map_tensors
     prefill, step, payload, what = main_path_fns(torch, model, params, cfg,
@@ -779,14 +822,22 @@ def component_times(torch, model, params, cfg, prompts, outs):
             a.dtype == b.dtype and torch.equal(a, b)
             for a, b in zip(flat, back)),
             f"{cfg.name} {medium}: {what} round trip is not bit-exact")
-        ms = host_ms(torch, lambda: path.fetch(path.store(payload)))
-        log(f"{cfg.name} store+fetch {medium:4s}: {ms:.3f} ms for "
-            f"{mb:.1f} MB (one sequence's {what}, bit-exact)")
+        st, fe = store_fetch_ms(torch, path, payload)
+        log(f"{cfg.name} {medium:4s}: store {st:.3f} ms, fetch {fe:.3f} ms, "
+            f"store+fetch {st + fe:.3f} ms for {mb:.1f} MB (one sequence's "
+            f"{what}, bit-exact)")
 
 
 def phase_serving(torch):
+    import tempfile
     from repro_torch.configs import get_config
+    from repro_torch.core.transfer import mount_of
     from repro_torch.models import get_model
+    scratch = tempfile.gettempdir()
+    point, fstype = mount_of(scratch)
+    log(f"disk medium: scratch directory {scratch} is on a {fstype} "
+        f"filesystem mounted at {point} (/proc/mounts); its pages are "
+        f"dropped after each store's fsync")
     counted = {k: 0 for k in launch_counters()}
     walls = {}
     for arch in ARCHS:
@@ -863,8 +914,9 @@ def phase_parity(torch):
 # ----------------------------------------------------------------------
 def windows_only(torch) -> dict:
     """``--windows DIR``: phase 3's prefill and decode-step times of each
-    arch, the flash wrapper's host time at the main shape and the paged
-    kernel's times (``paged_windows``), for the
+    arch, its handoff's store and fetch per medium, the flash wrapper's
+    host time at the main shape and the paged kernel's times
+    (``paged_windows``), for the
     checkout whose ``src`` is on the path, with this script's yardsticks.
     Run on two checkouts in one call, it compares them like for like."""
     from repro_torch.configs import get_config
@@ -889,14 +941,26 @@ def windows_only(torch) -> dict:
         prompt = list(random_workload(1, input_len=PROMPT, output_len=OUTPUT,
                                       vocab_size=cfg.vocab_size,
                                       seed=0)[0].prompt_tokens)
-        prefill, step, _, _ = main_path_fns(torch, model, params, cfg,
-                                            prompt, prompt[:N_REQ])
+        prefill, step, payload, _ = main_path_fns(torch, model, params, cfg,
+                                                  prompt, prompt[:N_REQ])
         out[arch] = window_times(torch, prefill, step)
         log_windows(arch, out[arch])
+        out[arch]["transfer"] = transfer_times(torch, payload)
+        log(f"{arch} store / fetch ms per medium: " + ", ".join(
+            f"{m} {t[0]:.3f} / {t[1]:.3f}"
+            for m, t in out[arch]["transfer"].items()))
         del model, params, prefill, step
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def transfer_times(torch, payload) -> dict:
+    """Store and fetch ms of one handoff payload per medium, with the
+    ``core/transfer.py`` of the checkout on the path."""
+    from repro_torch.core import make_path
+    return {m: store_fetch_ms(torch, make_path(m), payload)
+            for m in ("ici", "host", "disk")}
 
 
 def paged_windows(torch, g) -> dict:
@@ -931,8 +995,34 @@ def paged_windows(torch, g) -> dict:
     return out
 
 
-ABLATIONS = {1: "softmax arithmetic off", 2: "O += P V off",
-             3: "S = Q K^T off"}
+ABLATIONS = {   # kernel: (source, macro, {value: the part switched off})
+    "flash": ("flash_prefill", "FLASH_ABLATE", {
+        1: "softmax arithmetic off", 2: "O += P V off", 3: "S = Q K^T off"}),
+    "rwkv6": ("rwkv6_scan", "RWKV6_ABLATE", {
+        1: "A tiles off", 2: "operand pass off", 3: "products off",
+        4: "logarithms off"}),
+}
+
+
+def ablated_builds(kernel: str) -> dict:
+    """The kernel's source built once per ablation value (one nvcc each,
+    all started together): {value: ctypes library}."""
+    from repro_torch.kernels import _build
+    name, macro, parts = ABLATIONS[kernel]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in parts:
+        lib = _build.BUILD_DIR / f"lib{name}-ablate{n}.so"
+        procs[n] = lib, subprocess.Popen(
+            [_build.nvcc(), *_build.FLAGS, f"-D{macro}={n}", "-o", str(lib),
+             str(_build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for n, (lib, proc) in procs.items():
+        report, _ = proc.communicate()
+        require(proc.returncode == 0, f"{kernel} ablation {n} build:\n{report}")
+        libs[n] = ctypes.CDLL(str(lib))
+    return libs
 
 
 def flash_ablation(torch) -> dict:
@@ -940,21 +1030,10 @@ def flash_ablation(torch) -> dict:
     FLASH_ABLATE = 1, 2, 3, each of which switches one part of it off
     (its output is then wrong), timed at the main shape, at S = 8192 and
     at hd 64 and 80: what each part costs the kernel."""
-    import ctypes
-    from repro_torch.kernels import _build, flash_prefill
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n in ABLATIONS:
-        lib = _build.BUILD_DIR / f"libflash_prefill-ablate{n}.so"
-        procs[n] = lib, subprocess.Popen(
-            [_build.nvcc(), *_build.FLAGS, f"-DFLASH_ABLATE={n}", "-o",
-             str(lib), str(_build.CSRC / "flash_prefill.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    from repro_torch.kernels import flash_prefill
     fns = {}
-    for n, (lib, proc) in procs.items():
-        report, _ = proc.communicate()
-        require(proc.returncode == 0, f"ablation {n} build:\n{report}")
-        fns[n] = ctypes.CDLL(str(lib)).flash_prefill_fwd
+    for n, lib in ablated_builds("flash").items():
+        fns[n] = lib.flash_prefill_fwd
         fns[n].argtypes = flash_prefill._ARGTYPES
         fns[n].restype = ctypes.c_int
 
@@ -980,11 +1059,55 @@ def flash_ablation(torch) -> dict:
         reps = 5 if S >= 8192 else 20
         t = {"as built": cuda_ms(torch, lambda: flash_prefill.flash_attention(
             q, k, v, causal=True), reps=reps, flush=flush)}
-        for n, what in ABLATIONS.items():
+        for n, what in ABLATIONS["flash"][2].items():
             t[what] = cuda_ms(torch, lambda: launch(fns[n], q, k, v, o),
                               reps=reps, flush=flush)
         out[label] = t
         log(f"flash ablation {label} (S={S} H={H} KV={KV} hd={hd}, causal): "
+            + ", ".join(f"{w} {ms:.4f} ms" for w, ms in t.items()))
+    return out
+
+
+def rwkv6_ablation(torch) -> dict:
+    """``--rwkv6-ablation``: the chunked bf16 rwkv6 kernel as built and
+    built with RWKV6_ABLATE = 1..4, each of which switches one part of it
+    off (its output is then wrong), timed at rwkv6-3b's prefill shape and
+    at B = 4: what each part costs the kernel."""
+    from repro_torch.kernels import rwkv6_scan
+    fns = {}
+    for n, lib in ablated_builds("rwkv6").items():
+        fns[n] = lib.rwkv6_scan_fwd
+        fns[n].argtypes = rwkv6_scan._ARGTYPES
+        fns[n].restype = ctypes.c_int
+
+    def launch(fn, r, k, v, w, u, s0, y, s1):
+        B, T, NH, hd = r.shape
+        err = fn(1, 1, hd, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+                 s1.data_ptr(), B, T, NH, *r.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *w.stride()[:3],
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"ablation launch: CUDA error {err}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, B in (("main", 1), ("B4", 4)):
+        T, NH, hd = PROMPT, 40, 64
+        r, k, v = (torch.randn(B, T, NH, hd, generator=g,
+                               device="cuda").bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(0.5 * torch.randn(
+            B, T, NH, hd, generator=g, device="cuda") - 1.0))
+        u = 0.1 * torch.randn(NH, hd, generator=g, device="cuda")
+        s0 = torch.zeros(B, NH, hd, hd, device="cuda")
+        y, s1 = torch.empty_like(r), torch.empty_like(s0)
+        t = {"as built": cuda_ms(torch, lambda: rwkv6_scan.rwkv6_scan(
+            r, k, v, w, u, s0), flush=flush)}
+        for n, what in ABLATIONS["rwkv6"][2].items():
+            t[what] = cuda_ms(torch, lambda: launch(
+                fns[n], r, k, v, w, u, s0, y, s1), flush=flush)
+        out[label] = t
+        log(f"rwkv6 ablation {label} (B={B} T={T} NH={NH} hd={hd}, chunked): "
             + ", ".join(f"{w} {ms:.4f} ms" for w, ms in t.items()))
     return out
 
@@ -997,6 +1120,9 @@ def main() -> int:
                          "the checkout at DIR")
     ap.add_argument("--flash-ablation", action="store_true",
                     help="only time the flash kernel with parts switched off")
+    ap.add_argument("--rwkv6-ablation", action="store_true",
+                    help="only time the chunked rwkv6 kernel with parts "
+                         "switched off")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1023,8 +1149,11 @@ def main() -> int:
     built = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
-    if args.windows is not None or args.flash_ablation:
-        fn = windows_only if args.windows is not None else flash_ablation
+    diagnostic = (windows_only if args.windows is not None else
+                  flash_ablation if args.flash_ablation else
+                  rwkv6_ablation if args.rwkv6_ablation else None)
+    if diagnostic is not None:
+        fn = diagnostic
         print(json.dumps({"tree": str(src.parent), fn.__name__: fn(torch)}))
         print(smi)
         return 0

@@ -5,7 +5,8 @@ The paper's benchmarked variable (section IV-F). On the card:
   ici    device-to-device copy into the decode side's memory (one card;
          a peer copy across two cards is open)               -> dis-gpu
   host   device -> pinned host DRAM -> device                -> dis-cpu
-  disk   host staging + a file written and fsync'd, read back and
+  disk   host staging + a file written and fsync'd, its pages dropped
+         from the page cache, read back from the device and
          unlinked                                            -> dis-disk
 
 The timing and energy legs (``store_cost``/``fetch_cost``) are the
@@ -30,7 +31,7 @@ from __future__ import annotations
 import os
 import tempfile
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -160,7 +161,22 @@ class HostPath(TransferPath):
 
 
 class DiskPath(TransferPath):
-    """Host staging + NVMe write/read, page cache bypassed (dis-disk)."""
+    """Host staging + NVMe write/read, page cache bypassed (dis-disk).
+
+    ``store`` writes the payload with ``torch.save``, fsyncs it, and then
+    drops the file's clean pages from the page cache
+    (``posix_fadvise(POSIX_FADV_DONTNEED)``), so that ``fetch`` reads the
+    bytes back from the device and not from DRAM. What this covers: the
+    file's own data pages, written and read through the kernel's normal
+    buffered path. What it does not: the write still passes through the
+    page cache before the fsync (it is not O_DIRECT), the read-back fills
+    the cache again (the file is unlinked right after), the device's own
+    cache is not flushed, and the filesystem's metadata stays cached. The
+    bypass means nothing where ``scratch_dir`` is a RAM filesystem
+    (tmpfs): there the "disk" is DRAM. A platform without
+    ``os.posix_fadvise`` raises in ``store`` rather than read back
+    through the cache silently (the cost model alone needs no file).
+    """
 
     name = "disk"
 
@@ -201,11 +217,17 @@ class DiskPath(TransferPath):
         )
 
     def store(self, state: Any) -> Any:
+        if not hasattr(os, "posix_fadvise"):
+            raise RuntimeError("DiskPath: this platform has no "
+                               "os.posix_fadvise, so the page cache "
+                               "cannot be bypassed")
         fd, path = tempfile.mkstemp(dir=self.scratch_dir, suffix=".kv")
         with os.fdopen(fd, "wb") as f:
             torch.save(state, f)
             f.flush()
             os.fsync(f.fileno())     # defeat write-back caching
+            # the pages are clean now: drop them, so fetch reads the device
+            os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
         return path, _device_of(state)
 
     def fetch(self, handle: Any) -> Any:
@@ -213,6 +235,27 @@ class DiskPath(TransferPath):
         restored = torch.load(path, map_location=device, weights_only=True)
         os.unlink(path)
         return restored
+
+
+def mount_of(path: str, mounts: str = "/proc/mounts") -> Tuple[str, str]:
+    """(mount point, filesystem type) of the filesystem that holds
+    ``path``: the entry of ``mounts`` whose mount point is the longest
+    prefix of the resolved path. What the disk medium really is (tmpfs
+    would make it DRAM) is read from here."""
+    target = os.path.realpath(path)
+    best = ("", "unknown")
+    with open(mounts) as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) < 3:
+                continue
+            # /proc/mounts escapes spaces and tabs as octal
+            point = fields[1].encode().decode("unicode_escape")
+            inside = (target == point or point == "/"
+                      or target.startswith(point.rstrip("/") + "/"))
+            if inside and len(point) >= len(best[0]):
+                best = (point, fields[2])
+    return best
 
 
 PATHS = {"ici": ICIPath, "host": HostPath, "disk": DiskPath}

@@ -3,12 +3,21 @@ plain torch version.
 
 rwkv6-3b is attention-free: each layer's prefill runs this recurrence
 over the prompt, and its final state is the whole handoff to decode (the
-paper's degenerate-transfer case). The kernel (``csrc/rwkv6_scan.cu``)
-replaces the Pallas TPU kernel ``repro/kernels/rwkv6_scan.py::
-_rwkv6_kernel``; its header says what bounds it on the H100 and how it is
-laid out. It scans token by token and masks its ragged tail, so it takes
-any T. The wrapper takes the plain version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises.
+paper's degenerate-transfer case). The kernels (``csrc/rwkv6_scan.cu``)
+replace the Pallas TPU kernel ``repro/kernels/rwkv6_scan.py::
+_rwkv6_kernel``; the header says what bounds them on the H100 and how
+they are laid out. Which inputs take which kernel (``kernel_for``):
+
+- ``rwkv6_chunked``: bf16 r, k, v at head dim 64 (rwkv6-3b's), with r,
+  k, v and w on 16-byte aligned bases and strides. The chunked form on
+  the tensor cores, in chunks of 64 steps.
+- ``rwkv6_fwd``: everything else the wrapper takes: f32 (the parity
+  path, exact on the CUDA cores), head dims 32 and 128, and unaligned
+  bf16. It scans token by token.
+
+Both mask their ragged tail, so they take any T, and one call is one
+launch. The wrapper takes the plain version only for CPU tensors; for a
+CUDA tensor it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -22,10 +31,30 @@ from .flash_prefill import _DTYPES
 from .ref import rwkv6_scan_ref as plain
 
 HEAD_DIMS = (32, 64, 128)
+CHUNKED_HEAD_DIM = 64
+_KERNELS = {"step": 0, "chunked": 1}
 
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-_ARGTYPES = [_i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+_ARGTYPES = [_i, _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
              *[_ll] * 12, _p]
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and the three outer strides on 16-byte multiples: the chunked
+    kernel copies 16-byte pieces (cp.async)."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per == 0
+                                          for s in t.stride()[:3])
+
+
+def kernel_for(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor) -> str:
+    """The kernel that ``rwkv6_scan`` launches for these inputs on the
+    card: ``"chunked"`` or ``"step"`` (see the module docstring)."""
+    if r.dtype == torch.bfloat16 and r.shape[-1] == CHUNKED_HEAD_DIM \
+            and all(_aligned16(t) for t in (r, k, v, w)):
+        return "chunked"
+    return "step"
 
 
 def _check(r, k, v, w, u, state):
@@ -77,10 +106,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out = torch.empty_like(state)
     if B * NH == 0:
         return y, state.clone()
+    kernel = _KERNELS[kernel_for(r, k, v, w)]
     launch = _build.launcher("rwkv6_scan", "rwkv6_scan_fwd", _ARGTYPES)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch(_DTYPES[r.dtype], hd, r.data_ptr(), k.data_ptr(),
+        launch(kernel, _DTYPES[r.dtype], hd, r.data_ptr(), k.data_ptr(),
                v.data_ptr(), w.data_ptr(), u32.data_ptr(), state.data_ptr(),
                y.data_ptr(), s_out.data_ptr(), B, T, NH,
                *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],

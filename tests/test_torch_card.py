@@ -173,6 +173,71 @@ def test_rwkv6_kernel_matches_plain(card, dtype, B, T, NH, hd, w_lo, w_hi):
     torch.testing.assert_close(s, s_ref, atol=5e-4, rtol=5e-4)
 
 
+def _rwkv6_case(card, B, T, NH, hd, w_lo, w_hi, dtype=torch.bfloat16,
+                zeros=False):
+    r, k, v = (_rand(card, (B, T, NH, hd)).to(dtype) for _ in range(3))
+    w = _rand(card, (B, T, NH, hd), w_lo, w_hi)
+    if zeros:   # exact zeros, as exp(-exp(x)) gives in f32 for large x
+        w = torch.where(torch.rand(w.shape, generator=card, device="cuda")
+                        < 0.1, torch.zeros_like(w), w)
+    u = 0.1 * _rand(card, (NH, hd))
+    return r, k, v, w, u
+
+
+def _rwkv6_check(y, s, y_ref, s_ref, dtype):
+    tol = 5 * TOL[dtype]
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, s_ref, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("B,T,NH,w_lo,w_hi,carried,zeros", [
+    (1, 1024, 40, 0.45, 0.95, False, False),    # rwkv6-3b's prefill shape
+    (4, 1024, 40, 0.45, 0.95, False, False),    # B = 4
+    (1, 1000, 40, 0.45, 0.95, False, False),    # ragged T
+    (1, 37, 40, 0.45, 0.95, True, False),       # T < one chunk
+    (1, 1, 40, 0.45, 0.95, True, False),        # a single step
+    (2, 300, 8, 0.45, 0.95, True, False),       # a carried state
+    (2, 256, 4, 1e-6, 1e-3, True, False),       # decays near 0
+    (2, 256, 4, 0.999, 1.0, True, False),       # decays near 1
+    (1, 200, 4, 0.0, 1.0, True, True),          # w with exact zeros
+])
+def test_rwkv6_chunked_kernel_matches_plain(card, B, T, NH, w_lo, w_hi,
+                                            carried, zeros):
+    """bf16 at hd 64 with aligned inputs takes the chunked kernel: one
+    launch, and the plain f32 recurrence within the step kernel's
+    tolerances."""
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, 64, w_lo, w_hi, zeros=zeros)
+    s0 = _rand(card, (B, NH, 64, 64)) if carried else None
+    assert rwkv6_scan.kernel_for(r, k, v, w) == "chunked"
+    before = rwkv6_scan.rwkv6_scan.launches
+    y, s = rwkv6_scan.rwkv6_scan(r, k, v, w, u, s0)
+    assert rwkv6_scan.rwkv6_scan.launches == before + 1
+    _rwkv6_check(y, s, *ref.rwkv6_scan_ref(r, k, v, w, u, s0),
+                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["unaligned-bf16", "f32", "hd128-bf16"])
+def test_rwkv6_other_inputs_take_the_step_kernel(card, case):
+    """bf16 whose strides are not 16-byte multiples, f32 (the parity
+    path) and other head dims stay on rwkv6_fwd; one launch each, and
+    the plain version's answer."""
+    B, T, NH = 2, 150, 4
+    hd = 128 if case == "hd128-bf16" else 64
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, hd, 0.45, 0.95, dtype)
+    if case == "unaligned-bf16":
+        r = _rand(card, (B, T, NH * hd + 1)).bfloat16()[..., 1:].reshape(
+            B, T, NH, hd)
+        assert r.stride(1) % 8 and r.data_ptr() % 16
+    s0 = _rand(card, (B, NH, hd, hd))
+    assert rwkv6_scan.kernel_for(r, k, v, w) == "step"
+    before = rwkv6_scan.rwkv6_scan.launches
+    y, s = rwkv6_scan.rwkv6_scan(r, k, v, w, u, s0)
+    assert rwkv6_scan.rwkv6_scan.launches == before + 1
+    _rwkv6_check(y, s, *ref.rwkv6_scan_ref(r, k, v, w, u, s0), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,NH,P,N", [
     (1, 1024, 80, 64, 64),            # zamba2's prefill shape

@@ -319,6 +319,211 @@ def test_mamba2_chunked_plan_needs_the_split():
 
 
 # ----------------------------------------------------------------------
+# the CUDA kernel's chunked plan for bf16 (csrc/rwkv6_scan.cu)
+# ----------------------------------------------------------------------
+def rwkv6_chunked(r, k, v, w, u, state=None, *, chunk=64, sub=16,
+                  bf16=False, split=True, span_max=64.0):
+    """A plain mirror of ``rwkv6_chunked`` in csrc/rwkv6_scan.cu, used only
+    by these tests. Per chunk of ``chunk`` steps, in order, with Lc[t] the
+    exclusive cumulative sum of log2(max(w, 1e-38)) within the chunk and
+    Bv[m] = Lc[sub m] its value at the sub-chunk boundaries:
+
+      Rt[t] = r_t 2^{Lc[t] - Bv[j(t)]},   kh[s] = k_s 2^{Bv[i(s)+1] - Lc[s+1]}
+      A[t,s] = Rt[t] . (kh[s] 2^{Bv[j] - Bv[i+1]})          (i <= j)
+      y = (Rt 2^{Bv[j]}) S + (A o tril) V + bonus,  S = 2^{Lc[C]} S + (kh 2^{Lc[C] - Bv[i+1]})^T V
+
+    Every factor has an exponent <= 0 except the diagonal blocks' k side,
+    2^{Bv[j] - Lc[s+1]} <= 2^{span_j}: a diagonal block whose span passes
+    ``span_max`` in some channel is computed with exact pairwise exponents
+    instead. With ``bf16`` the operands are rounded as the kernel hands
+    them to the bf16 tensor cores: f32 values split into hi = bf16(x) and
+    lo = bf16(x - hi), products of two such taken as hi hi + hi lo + lo hi,
+    the carry operand in three terms; rounded once when not ``split``."""
+    Bsz, T, NH, hd = r.shape
+    nsub = chunk // sub
+    S = (torch.zeros((Bsz, NH, hd, hd)) if state is None
+         else state.float().clone())
+
+    def parts(x, n=2):
+        if not bf16:
+            return [x]
+        out = []
+        for _ in range(n if split else 1):
+            out.append(_bf16(x))
+            x = x - out[-1]
+        return out
+
+    def mm(a, b, n=2):       # a @ b, a f32 (parts), b exact or f32 (parts)
+        pa = parts(a, n)
+        if b is None:
+            return pa
+        pb = parts(b)
+        return sum(x @ y for i, x in enumerate(pa) for j, y in
+                   enumerate(pb) if i + j < max(len(pa), len(pb)))
+
+    rf, kf, vf = (x.float().transpose(1, 2) for x in (r, k, v))
+    lw = torch.log2(torch.clamp(w.float(), min=1e-38)).transpose(1, 2)
+    tril = torch.ones(sub, sub, dtype=torch.bool).tril(-1)
+    ys = []
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        pad = lambda x: torch.nn.functional.pad(x[:, :, t0:t0 + n],  # noqa
+                                                (0, 0, 0, chunk - n))
+        rc, kc, vc, lc = (pad(x) for x in (rf, kf, vf, lw))   # w = 1 past T
+        Lc = torch.nn.functional.pad(torch.cumsum(lc, 2), (0, 0, 1, 0))
+        Bv = Lc[:, :, ::sub]                                   # [.., nsub+1, hd]
+        blk = torch.arange(chunk) // sub
+        Rt = rc * torch.exp2(Lc[:, :, :-1] - Bv[:, :, blk])
+        kh = kc * torch.exp2(Bv[:, :, blk + 1] - Lc[:, :, 1:])
+        bonus = (rc * u.float()[None, :, None] * kc).sum(-1)
+        A = torch.zeros(Bsz, NH, chunk, chunk)
+        for j in range(nsub):
+            tj = slice(j * sub, (j + 1) * sub)
+            for i in range(j + 1):
+                si = slice(i * sub, (i + 1) * sub)
+                F = torch.exp2(Bv[:, :, j] - Bv[:, :, i + 1])[:, :, None]
+                kt = sum(parts(sum(parts(kh[:, :, si])) * F))
+                a = mm(Rt[:, :, tj], kt.transpose(-1, -2))
+                if i == j:
+                    exact = (rc[:, :, tj, None] * kc[:, :, None, si] * torch.exp2(
+                        Lc[:, :, tj, None] - Lc[:, :, None, i * sub + 1:
+                                                (i + 1) * sub + 1])).sum(-1)
+                    slow = ((Bv[:, :, j] - Bv[:, :, j + 1]) > span_max).any(-1)
+                    a = torch.where(slow[..., None, None], exact, a)
+                    a = a.masked_fill(~tril, 0.0) + torch.diag_embed(
+                        bonus[:, :, tj])
+                A[:, :, tj, si] = a
+        Rd = torch.cat([sum(parts(sum(parts(Rt[:, :, j * sub:(j + 1) * sub]))
+                                  * torch.exp2(Bv[:, :, j, None])))
+                        for j in range(nsub)], 2)
+        y = mm(Rd, S) + mm(A, vc)
+        ys.append(y[:, :, :n].transpose(1, 2))
+        Kd = kh * torch.exp2(Bv[:, :, -1:] - Bv[:, :, blk + 1])
+        S = torch.exp2(Bv[:, :, -1])[..., None] * S + \
+            sum(parts(Kd, 3)).transpose(-1, -2) @ vc
+    y = torch.cat(ys, 1) if ys else rf.new_zeros((Bsz, 0, NH, hd))
+    return y.to(r.dtype), S
+
+
+def _rwkv_plan_inputs(seed, B, T, NH, hd, carried, bf16, w_range=None,
+                      zeros=False):
+    """_rwkv_inputs plus a state; with ``bf16``, r, k and v are rounded to
+    bf16 first, so the reference computes in f32 on the very values the
+    kernel is given; with ``zeros``, a tenth of w is exactly 0."""
+    jx, tx = _rwkv_inputs(seed, B, T, NH, hd, w_range)
+    r, k, v, w, u = tx
+    rng = np.random.default_rng(seed + 1)
+    if zeros:
+        w = torch.where(torch.from_numpy(rng.random(w.shape) < 0.1),
+                        torch.zeros_like(w), w)
+    s0 = (torch.from_numpy(rng.standard_normal((B, NH, hd, hd))
+                           .astype(np.float32)) if carried else None)
+    if bf16:
+        r, k, v = r.bfloat16(), k.bfloat16(), v.bfloat16()
+    jx = [_pair(t.float().numpy())[0] for t in (r, k, v, w, u)]
+    js = None if s0 is None else _pair(s0.numpy())[0]
+    return jx, js, (r, k, v, w, u), s0
+
+
+# (B, T, NH, carried, w range, the Pallas chunks it is held to). Near 0
+# only chunks of 16: at 64 the Pallas kernel itself strays 5.2e-4 from
+# the sequential oracle there (its [C, C, hd] exponents in f32), over its
+# own 5e-4, where this plan stays within 3e-6.
+RWKV_PLAN_CASES = {
+    "T256": (1, 256, 2, False, None, (16, 64)),
+    "T37": (1, 37, 2, True, None, (16, 64)),          # T < C
+    "ragged-B2": (2, 150, 3, True, None, (16, 64)),   # T % C != 0, B = 2
+    "T1": (1, 1, 2, True, None, (16, 64)),            # a single step
+    "near0": (1, 128, 2, True, (1e-6, 1e-3), (16,)),  # diagonal blocks exact
+    "near1": (1, 256, 2, True, (0.999, 1.0), (16, 64)),
+}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16-operands"])
+@pytest.mark.parametrize("case", list(RWKV_PLAN_CASES))
+def test_rwkv6_chunked_plan_vs_reference(case, bf16):
+    """The kernel's plan in chunks of 64 holds the sequential reference to
+    y 2e-2 and state 2e-4 with its bf16 rounding emulated, and to 2e-4 in
+    f32; against the Pallas kernel at chunks of 16 and 64 (which sum in
+    another order) to the reference's own 5e-4 (see RWKV_PLAN_CASES)."""
+    B, T, NH, carried, w_range, chunks = RWKV_PLAN_CASES[case]
+    jx, js, tx, s0 = _rwkv_plan_inputs(B * 1000 + T, B, T, NH, 64, carried,
+                                       bf16, w_range)
+    y, s = rwkv6_chunked(*tx, s0, bf16=bf16)
+    assert y.shape == (B, T, NH, 64) and y.dtype == tx[0].dtype
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx, js)
+    _close(y, y_ref, 2e-2 if bf16 else TOL)
+    _close(s, s_ref, TOL)
+    for chunk in chunks:
+        y_p, s_p = r_ops.rwkv6(*jx, js, chunk=chunk,
+                               backend="pallas_interpret")
+        _close(y, y_p, 2e-2 if bf16 else PALLAS_TOL["rwkv6"])
+        _close(s, s_p, PALLAS_TOL["rwkv6"])
+
+
+def test_rwkv6_chunked_plan_carries_across_calls():
+    """Two calls with the state carried == the sequential reference over
+    the whole T (a ragged split)."""
+    jx, js, tx, s0 = _rwkv_plan_inputs(21, 1, 200, 2, 64, True, True)
+    r, k, v, w, u = tx
+    h = 77
+    y1, s1 = rwkv6_chunked(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0,
+                           bf16=True)
+    y2, s2 = rwkv6_chunked(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s1,
+                           bf16=True)
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx, js)
+    _close(torch.cat([y1, y2], dim=1), y_ref, 2e-2)
+    _close(s2, s_ref)
+
+
+def test_rwkv6_chunked_plan_takes_exact_zeros():
+    """w with exact zeros (exp(-exp(x)) underflows in f32): the clamp keeps
+    every logarithm finite, so no NaN, and the plan equals the step form."""
+    jx, js, tx, s0 = _rwkv_plan_inputs(22, 1, 200, 2, 64, True, True,
+                                       w_range=(0.0, 1.0), zeros=True)
+    assert int((tx[3] == 0).sum()) > 100
+    y, s = rwkv6_chunked(*tx, s0, bf16=True)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    y_step, s_step = t_rwkv.plain(*tx, s0)
+    _close(y, y_step.float().numpy(), 2e-2)
+    _close(s, s_step.numpy())
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx, js)
+    _close(s, s_ref)
+
+
+def test_rwkv6_chunked_plan_needs_the_exact_diagonal_near_0():
+    """The overflow argument: with decays near 0 a diagonal block's span
+    passes 2^64, and factoring it as the other blocks are factored (the
+    exact path switched off) overflows to inf and NaN; the plan as built
+    stays finite and exact."""
+    jx, js, tx, s0 = _rwkv_plan_inputs(23, 1, 128, 2, 64, True, False,
+                                       w_range=(1e-6, 1e-3))
+    y, s = rwkv6_chunked(*tx, s0)
+    y_ref, _ = r_ref.rwkv6_scan_ref(*jx, js)
+    _close(y, y_ref)
+    y_bad, _ = rwkv6_chunked(*tx, s0, span_max=float("inf"))
+    assert not torch.isfinite(y_bad).all()
+
+
+def test_rwkv6_chunked_plan_needs_the_split():
+    """Why the kernel splits its f32 operands into bf16 terms: rounded once,
+    the state misses its tolerance by an order of magnitude, and y misses
+    its own."""
+    jx, js, tx, s0 = _rwkv_plan_inputs(5, 1, 256, 2, 64, True, True,
+                                       w_range=(0.999, 1.0))
+    y_ref, s_ref = r_ref.rwkv6_scan_ref(*jx, js)
+    want_y, want_s = (np.asarray(x, np.float32) for x in (y_ref, s_ref))
+    y_split, s_split = rwkv6_chunked(*tx, s0, bf16=True)
+    y_once, s_once = rwkv6_chunked(*tx, s0, bf16=True, split=False)
+    _close(s_split, s_ref)
+    _close(y_split, y_ref, 2e-2)
+    err_s = np.abs(s_once.numpy() - want_s) / (TOL + TOL * np.abs(want_s))
+    err_y = np.abs(y_once.float().numpy() - want_y) / (
+        2e-2 + 2e-2 * np.abs(want_y))
+    assert err_s.max() > 10 and err_y.max() > 1
+
+
+# ----------------------------------------------------------------------
 # the padding contract, the wrappers' checks, dispatch
 # ----------------------------------------------------------------------
 def test_padding_is_a_no_op():
@@ -362,6 +567,27 @@ def test_wrapper_checks_reject_what_the_kernels_cannot_take():
         t_ssd._check(x, dt, A, b24, b24, A, z(1, 2, 24, 32))
     with pytest.raises(TypeError):
         t_ssd._check(x, dt.bfloat16(), A, bc, bc, A, z(1, 2, 16, 32))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16-hd64", "chunked"), ("f32-hd64", "step"), ("bf16-hd32", "step"),
+    ("bf16-hd128", "step"), ("bf16-unaligned-base", "step"),
+    ("bf16-unaligned-stride", "step"),
+])
+def test_rwkv6_kernel_choice(case, want):
+    """Which CUDA kernel the wrapper would launch: the chunked one takes
+    bf16 at hd 64 with 16-byte aligned bases and strides, the step kernel
+    everything else (decided from the tensors alone, so checked here)."""
+    hd = {"hd32": 32, "hd128": 128}.get(case.split("-")[1], 64)
+    dt = torch.float32 if case.startswith("f32") else torch.bfloat16
+    r = torch.zeros(2, 40, 4, hd, dtype=dt)
+    w = torch.zeros(2, 40, 4, hd)
+    if case == "bf16-unaligned-base":
+        r = torch.zeros(2 * 40 * 4 * hd + 1, dtype=dt)[1:].view(2, 40, 4, hd)
+    if case == "bf16-unaligned-stride":
+        r = torch.zeros(2, 40, 4 * hd + 1, dtype=dt)[..., :4 * hd].view(
+            2, 40, 4, hd)
+    assert t_rwkv.kernel_for(r, r, r, w) == want
 
 
 def test_scans_dispatch_on_cpu_to_the_plain_versions():
