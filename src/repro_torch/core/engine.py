@@ -709,8 +709,8 @@ class Engine:
 class RealExecutor:
     """Executes prefill/decode with an actual model; greedy sampling.
 
-    The dense family decodes from paged KV: every executor on a device
-    shares that device's ``DevicePagedKV``, a sequence's KV lives in
+    The dense and moe families decode from paged KV: every executor on
+    a device shares that device's ``DevicePagedKV``, a sequence's KV lives in
     physical pages keyed by its seq id, prefill writes them, decode
     attends over them through the paged kernel, and ``release`` returns
     them. ``seq.state`` is the handle ``(seq_id, ctx)``; the transferred
@@ -733,9 +733,10 @@ class RealExecutor:
         self.params = params
         self.kv = kv
         self.path = transfer_path
-        self.paged = model.family == "dense"
+        self.paged = model.paged
         if self.paged and kv is None:
-            raise ValueError("the dense family decodes from a DevicePagedKV")
+            raise ValueError(f"the {model.family} family decodes from a "
+                             f"DevicePagedKV")
         self.device = (kv.device if kv is not None
                        else params["embed"]["embedding"].device)
 

@@ -6,21 +6,25 @@ weights in the config's ``param_dtype``, on ``--device`` (default
 family's kernels (flash attention; the rwkv6 scan for rwkv6-3b; the
 Mamba2 SSD scan and flash attention for zamba2-2.7b), the prefill state
 crosses the setup's transfer medium for real, and decode goes through
-the paged-attention kernel over one device-wide page pool (dense
-family) or steps the recurrent state (ssm, hybrid). ``--smoke`` runs the
+the paged-attention kernel over one device-wide page pool (dense and
+moe families, e.g. deepseek-moe-16b) or steps the recurrent state (ssm,
+hybrid). The vlm and encdec families have no serving path, as in the
+reference, whose real mode passes tokens only. ``--smoke`` runs the
 reduced config instead, with prompts clamped to 64 tokens and outputs to
 8, as the reference's real mode does.
 
 The printed TTFT/TPOT/energy figures come from the simulator's cost
 model, whose constants describe a TPU: they are simulated, not measured
 on the card. Simulation mode (no ``--real``) comes with the port of
-``exp/`` (ROADMAP queue 1 item 7); ``repro.launch.serve`` runs it.
+``exp/`` (ROADMAP queue 1 item 5); ``repro.launch.serve`` runs it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --real --setup dis-ici
   PYTHONPATH=src python -m repro_torch.launch.serve --real --smoke \\
       --device cpu --setup dis-host
   PYTHONPATH=src python -m repro_torch.launch.serve --real --smoke \\
       --device cpu --arch rwkv6-3b --setup dis-disk
+  PYTHONPATH=src python -m repro_torch.launch.serve --real --smoke \\
+      --device cpu --arch deepseek-moe-16b --setup dis-host
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ def serve(arch: str, setup: str, *, batch_size: int = 16,
     if not real:
         raise NotImplementedError(
             "simulation mode comes with the port of exp/ (ROADMAP queue 1 "
-            "item 7); run repro.launch.serve for it")
+            "item 5); run repro.launch.serve for it")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve(real=True) runs on the card and no CUDA "
@@ -73,9 +77,9 @@ def serve(arch: str, setup: str, *, batch_size: int = 16,
     reqs = random_workload(batch_size, input_len=input_len,
                            output_len=output_len,
                            vocab_size=cfg.vocab_size, seed=seed)
-    # paged KV for the dense family; the recurrent families carry their
-    # own per-sequence state
-    kv = device_kv(cfg, reqs, device) if cfg.family == "dense" else None
+    # paged KV for the dense and moe families; the recurrent families
+    # carry their own per-sequence state
+    kv = device_kv(cfg, reqs, device) if model.paged else None
 
     def executor_factory(path):
         return RealExecutor(model, params, kv, transfer_path=path)

@@ -1,4 +1,5 @@
-from . import api, convert, layers, transformer
+from . import api, convert, encdec, layers, moe, transformer, vlm
 from .api import Model, get_model
 
-__all__ = ["Model", "get_model", "api", "convert", "layers", "transformer"]
+__all__ = ["Model", "get_model", "api", "convert", "encdec", "layers", "moe",
+           "transformer", "vlm"]

@@ -1,29 +1,31 @@
 """Unified model API, the port of ``repro.models.api``.
 
-``Model(cfg)`` dispatches on ``cfg.family``. The port has three
-families:
+``Model(cfg)`` dispatches on ``cfg.family``, all six of the reference's:
 
   dense   transformer.py (llama32-3b, qwen3, qwen2, yi, command-r)
+  moe     moe.py         (deepseek-moe-16b, moonshot-v1-16b-a3b)
   ssm     rwkv6.py       (rwkv6-3b; prefill through the rwkv6_scan kernel)
   hybrid  mamba2.py      (zamba2-2.7b; prefill through the mamba2_ssd and
                           flash kernels)
+  vlm     vlm.py         (internvl2-2b; batch {"patches", "tokens"})
+  encdec  encdec.py      (seamless-m4t-medium; batch {"src_embeds",
+                          "tokens"})
 
-moe, vlm and encdec raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (queue 1 item 8). Signatures follow the
-reference, with an explicit ``device`` and ``torch.Generator`` for
-initialisation:
+Signatures follow the reference, with an explicit ``device`` and
+``torch.Generator`` for initialisation:
 
   init(generator, device) -> params
   forward(params, batch) -> logits
   prefill(params, batch, s_max) -> (logits[B,V], decode_state)
   decode_step(params, tokens[B], state, pos[B]) -> (logits[B,V], state)
-  init_decode_state(batch_size, s_max, dtype, device) -> state (zeros;
-                    ssm and hybrid)
+  init_decode_state(batch_size, s_max, dtype, device, s_src) -> state
+                    (zeros; ssm, hybrid, vlm and encdec)
   decode_step_paged(params, tokens[B], k_pages, v_pages, block_table,
-                    pos[B]) -> logits[B,V]            (dense only)
+                    pos[B]) -> logits[B,V]            (dense and moe)
 
-The decode state is ``state_type``: the dense KV cache (AttnCache), the
-fixed-size recurrent state (RWKVState) or the mixed one (ZambaState).
+The decode state is ``state_type``: the dense KV cache (AttnCache; dense,
+moe, vlm), the fixed-size recurrent state (RWKVState), the mixed one
+(ZambaState) or self + cross KV (EncDecState).
 """
 from __future__ import annotations
 
@@ -32,18 +34,20 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from . import encdec as ED
 from . import mamba2 as MB
+from . import moe as MOE
 from . import rwkv6 as RW
 from . import transformer as TF
+from . import vlm as VL
 
-_PENDING = {
-    "moe": "ROADMAP queue 1 item 8 (models/moe.py)",
-    "vlm": "ROADMAP queue 1 item 8 (models/vlm.py)",
-    "encdec": "ROADMAP queue 1 item 8 (models/encdec.py)",
-}
-_MODULES = {"dense": TF, "ssm": RW, "hybrid": MB}
-_STATES = {"dense": TF.AttnCache, "ssm": RW.RWKVState,
-           "hybrid": MB.ZambaState}
+_MODULES = {"dense": TF, "moe": MOE, "ssm": RW, "hybrid": MB, "vlm": VL,
+            "encdec": ED}
+_STATES = {"dense": TF.AttnCache, "moe": TF.AttnCache, "ssm": RW.RWKVState,
+           "hybrid": MB.ZambaState, "vlm": TF.AttnCache,
+           "encdec": ED.EncDecState}
+_BATCHED = ("vlm", "encdec")     # forward/prefill take the whole batch
+PAGED = ("dense", "moe")         # decode from the paged pool when served
 
 
 def _hybrid_window(cfg: ModelConfig, seq_len: int) -> int:
@@ -59,11 +63,10 @@ class Model:
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in _MODULES:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-                f"{_PENDING.get(cfg.family, 'no ROADMAP item')}")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.family = cfg.family
+        self.paged = cfg.family in PAGED     # serving decodes from the pool
         self.state_type = _STATES[cfg.family]
         self._mod = _MODULES[cfg.family]
 
@@ -71,10 +74,15 @@ class Model:
         return self._mod.init(self.cfg, generator, device)
 
     def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self._mod.forward(params, batch["tokens"], self.cfg)
+        if self.family in _BATCHED:
+            return self._mod.forward(params, batch, self.cfg)
+        out = self._mod.forward(params, batch["tokens"], self.cfg)
+        return out[0] if self.family == "moe" else out    # moe: (logits, aux)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 s_max: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+        if self.family in _BATCHED:
+            return self._mod.prefill(params, batch, self.cfg, s_max)
         tokens = batch["tokens"]
         if self.family == "hybrid":
             return MB.prefill(params, tokens, self.cfg, s_max,
@@ -93,7 +101,10 @@ class Model:
         return self._mod.decode_step(params, tokens, state, pos, cfg)
 
     def init_decode_state(self, batch_size: int, s_max: int,
-                          dtype=torch.bfloat16, device="cuda") -> Any:
+                          dtype=torch.bfloat16, device="cuda",
+                          s_src: int = 0) -> Any:
+        """Zeros. ``s_src``: encdec's source length (default
+        ``min(s_max, max_source_len)``, as in the reference)."""
         cfg = self.cfg
         if self.family == "ssm":
             return RW.init_state(cfg, batch_size, dtype, device)
@@ -101,20 +112,32 @@ class Model:
             return MB.init_state(cfg, batch_size, s_max, dtype,
                                  window=_hybrid_window(cfg, s_max),
                                  device=device)
+        if self.family == "vlm":
+            return TF.empty_cache(cfg, batch_size, s_max, dtype, device)
+        if self.family == "encdec":
+            e = cfg.encdec
+            s_src = s_src or min(s_max, e.max_source_len)
+
+            def z(s):
+                return torch.zeros((e.num_decoder_layers, batch_size, s,
+                                    cfg.num_kv_heads, cfg.head_dim),
+                                   dtype=dtype, device=device)
+            return ED.EncDecState(self_k=z(s_max), self_v=z(s_max),
+                                  cross_k=z(s_src), cross_v=z(s_src))
         raise NotImplementedError(
-            f"{cfg.name}: the dense family decodes from the paged pool "
-            f"(core.DevicePagedKV), not from a per-sequence state")
+            f"{cfg.name}: the {self.family} family decodes from the paged "
+            f"pool (core.DevicePagedKV), not from a per-sequence state")
 
     def decode_step_paged(self, params, tokens: torch.Tensor,
                           k_pages: torch.Tensor, v_pages: torch.Tensor,
                           block_table: torch.Tensor,
                           pos: torch.Tensor) -> torch.Tensor:
-        if self.family != "dense":
+        if not self.paged:
             raise NotImplementedError(
-                f"{self.cfg.name}: paged decode is the dense family's; "
+                f"{self.cfg.name}: paged decode is the {PAGED} families'; "
                 f"{self.family!r} decodes its own state (decode_step)")
-        return TF.decode_step_paged(params, tokens, k_pages, v_pages,
-                                    block_table, pos, self.cfg)
+        return self._mod.decode_step_paged(params, tokens, k_pages, v_pages,
+                                           block_table, pos, self.cfg)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -199,8 +199,10 @@ def init_attention(cfg: ModelConfig, g: torch.Generator, device,
     return p
 
 
-def init_mlp(cfg: ModelConfig, g: torch.Generator, device, dtype) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, g: torch.Generator, device, dtype,
+             d_ff: int = 0) -> Params:
+    """``d_ff`` overrides ``cfg.d_ff`` (the MoE family's dense layers)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     std, out_std = 0.02, 0.02 / math.sqrt(2 * cfg.num_layers)
     p: Params = {}
     if cfg.act == "silu":

@@ -7,7 +7,11 @@ Entry points (the serving split the paper studies):
   decode_step        one token against a dense KV cache (the reference's
                      decode; plain torch attention)
   decode_step_paged  one token against the paged KV pool, through the
-                     paged-attention kernel (the port's serving decode)
+                     paged-attention kernel (the port's serving decode);
+                     its blocks' FFN is swappable, so the MoE family
+                     decodes through it too
+  forward_from_embeddings / prefill_from_embeddings
+                     the same over pre-embedded inputs (the VLM family)
 
 Params: ``{"embed": {...}, "layers": [per-layer dict, ...]}``; the
 reference's layer ``scan`` is a Python loop over the layer list.
@@ -63,10 +67,17 @@ def _attn_in(p, x, positions, cfg: ModelConfig):
     return q, k, v
 
 
-def _attn_out_mlp(p, x, attn, cfg: ModelConfig) -> torch.Tensor:
+def dense_mlp(p, h, cfg: ModelConfig) -> torch.Tensor:
+    """The dense family's FFN of one block."""
+    return L.mlp_forward(p["mlp"], h, cfg)
+
+
+def _attn_out_mlp(p, x, attn, cfg: ModelConfig, ffn=dense_mlp
+                  ) -> torch.Tensor:
+    """Output projection, residual, pre-norm and ``ffn(p, h, cfg)``."""
     x = x + L.out_project(p["attn"], attn, cfg)
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-    return x + L.mlp_forward(p["mlp"], h, cfg)
+    return x + ffn(p, h, cfg)
 
 
 def block_forward(p: Dict[str, Any], x: torch.Tensor,
@@ -100,14 +111,49 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
+def forward_from_embeddings(params, x: torch.Tensor,
+                            positions: torch.Tensor,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """x: [B, S, d] pre-embedded inputs -> logits [B, S, V] (VLM path)."""
+    for lp in params["layers"]:
+        x = block_forward(lp, x, positions, cfg)
+    return L.lm_logits(params["embed"], x, cfg)
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """tokens: [B, S] -> logits [B, S, V]."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
-    positions = _positions(B, S, tokens.device)
+    return forward_from_embeddings(params, x,
+                                   _positions(B, S, tokens.device), cfg)
+
+
+def stack_cache(ks: List[torch.Tensor], vs: List[torch.Tensor],
+                s_max: int) -> AttnCache:
+    """Per-layer K/V [B, S, KV, hd] -> the dense cache, zero-padded to
+    ``s_max`` slots."""
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    S = ks.shape[2]
+    if s_max > S:
+        pad = (0, 0, 0, 0, 0, s_max - S)
+        ks = torch.nn.functional.pad(ks, pad)
+        vs = torch.nn.functional.pad(vs, pad)
+    return AttnCache(k=ks, v=vs)
+
+
+def prefill_from_embeddings(params, x: torch.Tensor,
+                            positions: torch.Tensor, cfg: ModelConfig,
+                            s_max: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, AttnCache]:
+    """Pre-embedded prefill (VLM path). x: [B, S, d] -> (last-position
+    logits [B, V], cache padded with zeros to ``s_max`` slots)."""
+    ks, vs = [], []
     for lp in params["layers"]:
-        x = block_forward(lp, x, positions, cfg)
-    return L.lm_logits(params["embed"], x, cfg)
+        x, (k, v) = block_forward(lp, x, positions, cfg, return_kv=True)
+        ks.append(k)
+        vs.append(v)
+    logits = L.lm_logits(params["embed"], x[:, -1:], cfg)[:, 0]
+    return logits, stack_cache(ks, vs, s_max or x.shape[1])
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -116,21 +162,10 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens: [B, S] -> (last-position logits [B, V], cache padded with
     zeros to ``s_max`` slots)."""
     B, S = tokens.shape
-    s_max = s_max or S
     x = L.embed(params["embed"], tokens, cfg)
-    positions = _positions(B, S, tokens.device)
-    ks, vs = [], []
-    for lp in params["layers"]:
-        x, (k, v) = block_forward(lp, x, positions, cfg, return_kv=True)
-        ks.append(k)
-        vs.append(v)
-    ks, vs = torch.stack(ks), torch.stack(vs)
-    if s_max > S:
-        pad = (0, 0, 0, 0, 0, s_max - S)
-        ks = torch.nn.functional.pad(ks, pad)
-        vs = torch.nn.functional.pad(vs, pad)
-    logits = L.lm_logits(params["embed"], x[:, -1:], cfg)[:, 0]
-    return logits, AttnCache(k=ks, v=vs)
+    return prefill_from_embeddings(params, x,
+                                   _positions(B, S, tokens.device), cfg,
+                                   s_max)
 
 
 def decode_step(params, tokens: torch.Tensor, cache: AttnCache,
@@ -150,28 +185,40 @@ def decode_step(params, tokens: torch.Tensor, cache: AttnCache,
 
 def decode_step_paged(params, tokens: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, block_table: torch.Tensor,
-                      pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                      pos: torch.Tensor, cfg: ModelConfig,
+                      blocks: Optional[List[Tuple[Dict[str, Any], Any]]] = None
+                      ) -> torch.Tensor:
     """One token per sequence against the paged pool.
 
     tokens: [B]; k_pages/v_pages: [L, P, page, KV, hd], written IN PLACE
     (the new K/V lands in page ``block_table[b, pos // page]``, slot
     ``pos % page``); block_table: [B, max_pages] int32 holding a page for
-    position ``pos``; pos: [B] int32. Returns logits [B, V].
+    position ``pos``; pos: [B] int32. ``blocks``: the (layer params,
+    ``ffn(p, h, cfg)``) pairs in layer order, by default the dense
+    family's layers with their MLP. Returns logits [B, V].
     """
     if cfg.sliding_window:
         raise NotImplementedError("paged decode has no sliding window")
+    if blocks is None:
+        blocks = [(lp, dense_mlp) for lp in params["layers"]]
     page = k_pages.shape[2]
     pos_l = pos.long()
     pages = block_table.long().gather(1, (pos_l // page)[:, None])[:, 0]
     slots = pos_l % page
     seq_lens = (pos + 1).to(torch.int32)
     x = L.embed(params["embed"], tokens[:, None], cfg)
-    for layer, lp in enumerate(params["layers"]):
+    for layer, (lp, ffn) in enumerate(blocks):
         q, k, v = _attn_in(lp, x, pos_l[:, None], cfg)
         k_pages[layer, pages, slots] = k[:, 0].to(k_pages.dtype)
         v_pages[layer, pages, slots] = v[:, 0].to(v_pages.dtype)
         attn = ops.paged_attention(q[:, 0], k_pages[layer], v_pages[layer],
                                    block_table, seq_lens)
-        x = _attn_out_mlp(lp, x, attn[:, None], cfg)
+        x = _attn_out_mlp(lp, x, attn[:, None], cfg, ffn)
     return L.lm_logits(params["embed"], x, cfg)[:, 0]
 
+
+def empty_cache(cfg: ModelConfig, batch: int, s_max: int,
+                dtype=torch.bfloat16, device="cuda") -> AttnCache:
+    shape = (cfg.num_layers, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    return AttnCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                     v=torch.zeros(shape, dtype=dtype, device=device))

@@ -13,7 +13,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import DevicePagedKV, PagedKVPool  # noqa: E402
 from repro_torch.kernels import (flash_prefill, mamba2_ssd, paged_decode,  # noqa: E402
                                  ref, rwkv6_scan)
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import get_model, moe  # noqa: E402
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
@@ -33,6 +33,10 @@ def card():
     (130, 130, 4, 4, 80, 0), (96, 160, 4, 4, 80, 24),
     (17, 17, 24, 8, 128, 0),          # one partial tile
     (1024, 1024, 32, 32, 80, 0),      # zamba2's shared block, both masks
+    (1024, 1024, 16, 16, 128, 0),     # deepseek-moe-16b's MHA
+    (32, 1024, 16, 16, 64, 0),        # seamless-m4t-medium's cross-attention
+    (1, 1024, 16, 16, 64, 0),         # ... at decode: one query row
+    (1, 1, 16, 16, 64, 0),            # ... and its BOS prefill
 ])
 def test_flash_kernel_matches_plain(card, dtype, S, T, H, KV, hd, window):
     q = torch.randn(2, S, H, hd, generator=card, device="cuda").to(dtype)
@@ -50,7 +54,8 @@ def test_flash_kernel_matches_plain(card, dtype, S, T, H, KV, hd, window):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KV,hd,page", [(8, 2, 64, 16), (7, 1, 128, 8),
-                                          (4, 4, 32, 16)])
+                                          (4, 4, 32, 16),
+                                          (16, 16, 128, 16)])  # deepseek-moe
 def test_paged_kernel_matches_plain(card, dtype, H, KV, hd, page):
     P, B, max_pages = 40, 3, 9
     q = torch.randn(B, H, hd, generator=card, device="cuda").to(dtype)
@@ -334,4 +339,75 @@ def test_model_prefill_and_paged_decode_match_cpu(card):
         nxt = model.decode_step_paged(p, t[:, -1], kv.k, kv.v, bt, pos)
         logits[dev] = (first.cpu(), nxt.cpu())
     for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("T,dropless", [(4, True), (300, False)])
+def test_moe_dispatch_on_card_matches_cpu(card, T, dropless):
+    """deepseek-moe-16b's routing (64 experts, top-6) at a small width: a
+    B = 4 decode batch whose tokens share experts (slots dropped at
+    C = 3) and a prefill of 300 tokens, on the card and on the CPU."""
+    import dataclasses
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["deepseek-moe-16b"])
+    cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, num_experts=64, top_k=6, d_expert=32, capacity_factor=1.25))
+    d, E, f = cfg.d_model, 64, 32
+    p = {"router": torch.randn(d, E, generator=card, device="cuda") * 0.05,
+         "w_gate": torch.randn(E, d, f, generator=card, device="cuda") * 0.1,
+         "w_up": torch.randn(E, d, f, generator=card, device="cuda") * 0.1,
+         "w_down": torch.randn(E, f, d, generator=card, device="cuda") * 0.1}
+    p["router"][:, 5] += 0.5
+    x = torch.randn(T, d, generator=card, device="cuda").abs()
+    out, drops = {}, {}
+    for dev in ("cuda", "cpu"):
+        moe.reset_decode_drops()
+        out[dev] = moe._dispatch(_to(p, dev), x.to(dev), cfg, dropless)
+        drops[dev] = moe.decode_drops()
+    assert drops["cuda"] == drops["cpu"]
+    assert (drops["cuda"] > 0) == dropless
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-2b",
+                                  "seamless-m4t-medium"])
+def test_new_families_match_cpu(card, arch):
+    """The reduced model's prefill and one decode step on the card and on
+    the CPU (moe: through the paged pool; vlm, encdec: their own state)."""
+    cfg = configs.reduce_for_smoke(configs.REGISTRY[arch])
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=card,
+                         device="cuda")
+    batch, start = {"tokens": toks}, 40
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.vision.num_patches,
+                                       cfg.vision.frontend_dim,
+                                       generator=card, device="cuda")
+        start += cfg.vision.num_patches
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn(2, 48, cfg.encdec.frontend_dim,
+                                          generator=card, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        pos = torch.tensor([start, start], dtype=torch.int32, device=dev)
+        nxt_tok = toks[:, -1].to(dev)
+        if cfg.family == "moe":
+            pool = PagedKVPool(num_pages=8, page_size=16)
+            kv = DevicePagedKV(pool, cfg.num_layers, cfg.num_kv_heads,
+                               cfg.head_dim, dtype=torch.float32, device=dev)
+            first, cache = model.prefill(p, b)
+            for i in range(2):
+                pool.allocate(i, start + 1)
+                kv.write_prefill(i, cache.k[:, i], cache.v[:, i])
+            bt = torch.tensor([pool.block_table(i) for i in range(2)],
+                              dtype=torch.int32, device=dev)
+            nxt = model.decode_step_paged(p, nxt_tok, kv.k, kv.v, bt, pos)
+        else:
+            first, state = model.prefill(p, b, s_max=start + 4)
+            nxt, _ = model.decode_step(p, nxt_tok, state, pos)
+        out[dev] = (first.cpu(), nxt.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)

@@ -1,12 +1,14 @@
 """Real-mode serving in the port against the reference: identical token
 streams per request in the five setups plus intra-gpu (the recipe of
-tests/test_serving_integration.py), simulated metrics and energy equal
-to the reference's, bit-exact transfer paths, and the launcher's device
-rules.
+tests/test_serving_integration.py) for the reference's archs there less
+the recurrent ones (tests/test_torch_recurrent_serving.py has those) and
+the other dense archs, simulated metrics and energy equal to the
+reference's, bit-exact transfer paths, and the launcher's device rules.
 
 Both packages run the same weights: the reference's init with its
-projections scaled by 10. At the plain init the reduced model repeats
-its last prompt token, which would make the stream check vacuous."""
+projections (the experts' too) scaled by 10. At the plain init the
+reduced model repeats its last prompt token, which would make the stream
+check vacuous."""
 import dataclasses
 
 import numpy as np
@@ -20,7 +22,6 @@ import jax.numpy as jnp  # noqa: E402
 import repro.core as R  # noqa: E402
 from repro.configs import REGISTRY, reduce_for_smoke  # noqa: E402
 from repro.models import get_model as ref_get_model  # noqa: E402
-from repro.models import transformer as RTF  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch import configs as tcfg  # noqa: E402
 from repro_torch.launch.serve import device_kv, serve  # noqa: E402
@@ -28,18 +29,29 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 
 ARCH = "llama32-3b"
+# tests/test_serving_integration.py's archs less the recurrent ones, then
+# the other dense archs
+ARCHS = (ARCH, "qwen3-1.7b", "moonshot-v1-16b-a3b", "qwen2-0.5b", "yi-34b",
+         "command-r-35b")
 SETUPS = tuple(T.SETUPS) + ("intra-gpu",)
 IN_LEN, OUT_LEN = 48, 6
+_SCALED = {"attn": ("wq", "wk", "wv", "wo"),
+           "mlp": ("w_gate", "w_up", "w_down"),
+           "ffn": ("w_gate", "w_up", "w_down"),        # moe: dense or experts
+           "shared": ("w_gate", "w_up", "w_down")}     # moe: shared experts
 
 
-def np_params():
-    cfg = reduce_for_smoke(REGISTRY[ARCH])
-    p = jax.tree.map(np.asarray, RTF.init(jax.random.PRNGKey(0), cfg))
-    for group, names in (("attn", ("wq", "wk", "wv", "wo")),
-                         ("mlp", ("w_gate", "w_up", "w_down"))):
-        for n in names:
-            p["layers"][group][n] = p["layers"][group][n] * 10
-    return cfg, p
+def _scale(tree, names=()):
+    """The projections named in ``_SCALED`` times 10, wherever they sit."""
+    return {k: _scale(v, _SCALED.get(k, ())) if isinstance(v, dict)
+            else v * 10 if k in names else v for k, v in tree.items()}
+
+
+def np_params(arch=ARCH):
+    cfg = reduce_for_smoke(REGISTRY[arch])
+    p = jax.tree.map(np.asarray,
+                     ref_get_model(cfg).init(jax.random.PRNGKey(0)))
+    return cfg, _scale(p)
 
 
 def cluster_kw(cfg, n_req, pool_tokens=None):
@@ -54,10 +66,10 @@ def _streams(res):
             sorted(res.requests, key=lambda r: r.req_id)]
 
 
-def run_reference(setup, n_req, pool_tokens=None, real=True):
+def run_reference(setup, n_req, pool_tokens=None, real=True, arch=ARCH):
     """The reference's real-mode streams (or, with ``real=False``, its
     simulation without executors) for one setup."""
-    cfg, p = np_params()
+    cfg, p = np_params(arch)
     model = ref_get_model(cfg)
     params = jax.tree.map(jnp.asarray, p)
     factory = (lambda path: R.RealExecutor(model, params,
@@ -70,9 +82,9 @@ def run_reference(setup, n_req, pool_tokens=None, real=True):
         reqs, stepper="exact")
 
 
-def run_port(setups, n_req, pool_tokens=None):
-    _, p = np_params()
-    cfg = tcfg.reduce_for_smoke(tcfg.REGISTRY[ARCH])
+def run_port(setups, n_req, pool_tokens=None, arch=ARCH):
+    _, p = np_params(arch)
+    cfg = tcfg.reduce_for_smoke(tcfg.REGISTRY[arch])
     model = get_model(cfg)
     params = params_from_reference(p, cfg, device="cpu")
     out = {}
@@ -93,16 +105,19 @@ def run_port(setups, n_req, pool_tokens=None):
 _RUNS = {}
 
 
-def _runs():
-    if not _RUNS:
-        _RUNS["ref"] = _streams(run_reference("dis-host", 3))
-        _RUNS["port"] = run_port(SETUPS, 3)
-    return _RUNS
+def _runs(arch=ARCH):
+    if arch not in _RUNS:
+        _RUNS[arch] = {
+            "ref": _streams(run_reference("dis-host", 3, arch=arch)),
+            "port": run_port(SETUPS, 3, arch=arch)}
+    return _RUNS[arch]
 
 
-@pytest.mark.parametrize("setup", SETUPS)
-def test_tokens_match_reference(setup):
-    runs = _runs()
+@pytest.mark.parametrize("arch,setup", [
+    pytest.param(a, s, id=s if a == ARCH else f"{a}-{s}")
+    for a in ARCHS for s in SETUPS])
+def test_tokens_match_reference(arch, setup):
+    runs = _runs(arch)
     want = runs["ref"]
     assert len({tuple(s) for s in want}) > 1, "streams should differ"
     assert len(set(want[0])) > 1, "a stream should not repeat one token"
