@@ -16,7 +16,9 @@ Phases, each fatal on failure (the script exits non-zero):
      rwkv6 scan also at decays near 0 and near 1, T 37 and T 1, each line
      naming the kernel that ran, chunked or step), for
      flash attention ``scaled_dot_product_attention``'s time as a
-     yardstick the port never calls, and each instance's registers and
+     yardstick the port never calls (wherever it computes the same
+     function: no window, no offset, and square if causal), and each
+     instance's registers and
      spills from the build; paged at the main shape, at long and ragged
      contexts (32K), B=1 at 8K, B=32, command-r's G=8 and
      deepseek-moe-16b's H = KV = 16, each with its
@@ -57,7 +59,20 @@ Phases, each fatal on failure (the script exits non-zero):
      24 for the vlm's prefill; 36 for the encdec's prefill and 12 a
      step, its cross-attention with one query row), and the logits of
      the prefill and every step against an f32 kernel-free recompute at
-     phase 3's tolerance.
+     phase 3's tolerance;
+  6. simulator: ``repro_torch.launch.serve`` in simulation mode at its
+     defaults (llama32-3b, bs 16, 16384 + 256) in the five setups,
+     intra-gpu and 2P2D-ici, printed as the TPU v5e cost model's figures;
+     the paper's Experiment 2, fig5's smoke grid (setup x phi in {0.42,
+     0.74, 1.0}, batch 8) through ``repro_torch.exp.run_grid``, whose
+     rows must equal ``tests/goldens/fig5_pareto_smoke.json`` and whose
+     second pass must simulate nothing; and llama32-3b at full width in
+     bf16 through ``repro_torch.exp.run`` with the real executor in
+     co-1gpu and dis-ici (4 requests of 1024 + 32 tokens): flash 28 x
+     prefills and paged 28 x decode steps (counts set to 0 just before
+     each run), streams equal to phase 3's, and a record equal to the
+     same experiment's without an executor (stepped exactly, as an
+     engine with an executor steps).
 
 It prints the kernels' JSON line and the card's name and power limit
 before its last line, which is
@@ -387,10 +402,13 @@ def phase_kernels(torch):
             plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(
                 q, k, v, **kw), reps=3, warmup=1)
             lib_ms = None
-            if causal and window == 0 and q_offset == 0 and S == T:
+            # SDPA computes the same function wherever there is no window
+            # and no offset; its causal mask is aligned top-left, so a
+            # causal case must be square
+            if window == 0 and q_offset == 0 and (S == T or not causal):
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                    qt, kt, vt, is_causal=causal, enable_gqa=True),
                     reps=reps, flush=flush)
             flops = 4.0 * B * H * hd * flash_pairs(q_offset, S, T, causal,
                                                    window)
@@ -717,7 +735,7 @@ def serve_setups(torch, arch):
     """Serve ``arch`` in the five setups with every launch count set to
     0 just before and read just after (and, for moe, the dropped decode
     slots per setup); returns (launch counts, streams, prompts, setup
-    wall times)."""
+    wall times, every setup's streams)."""
     from repro_torch.configs import get_config
     from repro_torch.core import SETUPS
     from repro_torch.launch.serve import serve
@@ -773,7 +791,7 @@ def serve_setups(torch, arch):
     same = sum(streams[s] == streams["co-1gpu"] for s in SETUPS)
     log(f"{arch} bf16 first tokens agree in all setups; "
         f"{same}/{len(SETUPS)} setups give co-1gpu's full streams")
-    return counted, streams["co-1gpu"], prompts, walls
+    return counted, streams["co-1gpu"], prompts, walls, streams
 
 
 def check_teacher_forced(torch, model, params, cfg, prompt, outs):
@@ -932,9 +950,10 @@ def phase_serving(torch):
         f"filesystem mounted at {point} (/proc/mounts); its pages are "
         f"dropped after each store's fsync")
     counted = {k: 0 for k in launch_counters()}
-    walls = {}
+    walls, streams = {}, {}
     for arch in ARCHS:
-        got, outs0, prompts, walls[arch] = serve_setups(torch, arch)
+        got, outs0, prompts, walls[arch], streams[arch] = serve_setups(
+            torch, arch)
         for k, n in got.items():
             counted[k] += n
         cfg = get_config(arch)
@@ -946,7 +965,7 @@ def phase_serving(torch):
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
-    return counted, walls
+    return counted, walls, streams
 
 
 # ----------------------------------------------------------------------
@@ -1199,6 +1218,205 @@ def phase_families(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return counted
+
+
+# ----------------------------------------------------------------------
+# phase 6: the simulator layers (exp, workload, core.dvfs)
+# ----------------------------------------------------------------------
+SIM_SETUPS = ("co-1gpu", "co-2gpus", "dis-ici", "dis-host", "dis-disk",
+              "intra-gpu", "2P2D-ici")
+FIG5_GRID = (0.42, 0.74, 1.0)                 # the fig5 smoke grid
+FIG5_HEADER = ["setup", "phi", "median_ttft_s", "prefill_energy_kj",
+               "median_tpot_ms", "decode_energy_kj"]
+EXP_ARCH, EXP_SETUPS = "llama32-3b", ("co-1gpu", "dis-ici")
+
+
+def simulated_serving() -> None:
+    """6a: ``serve`` in simulation mode at its defaults (llama32-3b,
+    bs 16, 16384 + 256) in each setup."""
+    from repro_torch.launch.serve import serve
+    for setup in SIM_SETUPS:
+        res = serve("llama32-3b", setup, verbose=False)
+        m = res.metrics
+        require(m.median_ttft_s > 0 and m.median_tpot_s > 0,
+                f"simulated {setup}: no latency")
+        log(f"sim {setup:9s} (simulated, TPU v5e cost model): median TTFT "
+            f"{m.median_ttft_s:.4f} s, median TPOT "
+            f"{m.median_tpot_s * 1e3:.3f} ms, "
+            f"{res.joules_per_token:.4f} J/token")
+
+
+def fig5_rows(recs, setups):
+    """fig5's Pareto rows of a setup x phi grid's records."""
+    rows = []
+    for i, setup in enumerate(setups):
+        for phi, r in zip(FIG5_GRID, recs[i * len(FIG5_GRID):]):
+            rows.append(dict(zip(FIG5_HEADER, [
+                setup, phi, round(r.metrics.median_ttft_s, 4),
+                round(r.prefill_side_j / 1e3, 3),
+                round(r.metrics.median_tpot_s * 1e3, 3),
+                round(r.decode_side_j / 1e3, 3)])))
+    return json.loads(json.dumps(rows))
+
+
+def fig5_smoke(cache_dir: str) -> None:
+    """6b: the paper's Experiment 2, fig5's smoke grid through
+    ``run_grid``, held to ``tests/goldens/fig5_pareto_smoke.json``; a
+    second pass must simulate nothing."""
+    from repro_torch.core import SETUPS
+    from repro_torch.exp import (Experiment, Grid, ResultCache, run_grid,
+                                 sim_count)
+    golden = json.loads((ROOT / "tests" / "goldens" /
+                         "fig5_pareto_smoke.json").read_text())["points"]
+    cache = ResultCache(cache_dir)
+    grid = Grid(Experiment.closed(SETUPS[0], 8, arch="llama32-3b"),
+                {"setup": SETUPS, "phi": FIG5_GRID})
+    s0 = sim_count()
+    rows = fig5_rows(run_grid(grid, parallel=1, cache=cache), SETUPS)
+    cold = sim_count() - s0
+    require(rows == golden, f"fig5 smoke rows differ from the golden: "
+                            f"{rows} != {golden}")
+    s1 = sim_count()
+    warm = fig5_rows(run_grid(grid, parallel=1, cache=cache), SETUPS)
+    require(warm == golden and sim_count() == s1,
+            f"fig5 warm pass simulated {sim_count() - s1} cells")
+    log(f"fig5 smoke grid: {len(rows)} rows equal "
+        f"tests/goldens/fig5_pareto_smoke.json ({cold} simulations; the "
+        f"warm pass simulated {sim_count() - s1}, "
+        f"{cache.stats.hits} cache hits)")
+
+
+def exp_real_route(torch, model, params, cfg, setup):
+    """6c: one experiment through ``repro_torch.exp.run`` with the real
+    executor: ``N_REQ`` requests of ``PROMPT`` + ``OUTPUT`` tokens whose
+    ids are ``random_workload``'s, a device KV pool sized to them, and a
+    tracer to count prefills and decode steps. Returns (the record, the
+    records of the same experiment run without an executor by the exact
+    and by the default (fast) stepper, streams, prefills, decode
+    steps)."""
+    from repro_torch.core import RealExecutor
+    from repro_torch.exp import ClosedLoop, Experiment, run
+    from repro_torch.fleet import cluster
+    from repro_torch.launch.serve import device_kv
+    from repro_torch.obs.trace import Tracer
+    exp = Experiment(arch=EXP_ARCH, fleet=setup, workload=ClosedLoop(
+        N_REQ, input_len=PROMPT, output_len=OUTPUT, seed=0,
+        vocab_size=cfg.vocab_size))
+    kv = (device_kv(cfg, exp.workload.build(exp.slo), "cuda")
+          if model.paged else None)
+    served = {}
+
+    class Recording(RealExecutor):
+        """Keeps the requests it prefills, to read their streams."""
+
+        def prefill(self, seq):
+            served[seq.req.req_id] = seq.req
+            return super().prefill(seq)
+
+    tracer = Tracer()
+    rec = run(exp, tracer=tracer, executor_factory=lambda path: Recording(
+        model, params, kv, transfer_path=path))
+    # an engine with an executor steps one token at a time (it never
+    # coalesces decode runs, core/fastpath.py), so the like-for-like run
+    # without one takes the exact stepper
+    default, cluster.DEFAULT_STEPPER = cluster.DEFAULT_STEPPER, "exact"
+    try:
+        exact = run(exp, cache=None)
+    finally:
+        cluster.DEFAULT_STEPPER = default
+    fast = run(exp, cache=None)
+    prefills = len([e for e in tracer.instants("lifecycle")
+                    if e.name == "prefill_done"])
+    steps = len([e for e in tracer.spans() if e.name in ("decode", "mixed")])
+    streams = [served[i].output_tokens for i in sorted(served)]
+    return rec, exact, fast, streams, prefills, steps
+
+
+def record_diff(rec, other, keys=None) -> list:
+    """The fields of two records of one experiment that differ."""
+    a, b = rec.to_dict(), other.to_dict()
+    return [k for k in (keys or a) if a[k] != b[k]]
+
+
+def stage_gap(rec, other) -> float:
+    """Largest relative difference of the two records' joules by stage."""
+    a, b = rec.energy_by_stage, other.energy_by_stage
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+
+def real_through_exp(torch, streams3) -> dict:
+    """6c on the card: llama32-3b at full width and depth in bf16 through
+    ``exp.run`` in co-1gpu and dis-ici, launch counts set to 0 just
+    before each run and read just after; streams held to phase 3's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = get_config(EXP_ARCH)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")               # serve()'s weights: same seed
+    counters = launch_counters()
+    counted = {k: 0 for k in counters}
+    for setup in EXP_SETUPS:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, exact, fast, streams, prefills, steps = exp_real_route(
+            torch, model, params, cfg, setup)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        want = {k: 0 for k in counters}
+        want.update(expected_launches(cfg, prefills, steps))
+        log(f"exp {EXP_ARCH} {setup:8s} with the real executor: wall "
+            f"{wall:.3f} s (and two runs without it), {prefills} prefills, "
+            f"{steps} decode steps, launches {got}")
+        require(prefills >= N_REQ and steps >= OUTPUT - 1 and got == want,
+                f"exp {setup}: launches {got}, want {want} for {prefills} "
+                f"prefills and {steps} decode steps")
+        for k, n in got.items():
+            counted[k] += n
+        require(streams == streams3[setup],
+                f"exp {setup}: streams differ from phase 3's serve")
+        diff = record_diff(rec, exact)
+        require(not diff, f"exp {setup}: the record's {diff} differ from "
+                          f"the exact stepper's run without an executor")
+        # the fast stepper against the exact one: the reference's own
+        # contract (tests/test_fastpath_parity.py), bit-equal but for
+        # joules by stage, whose fold order it relaxes to 1e-9 relative
+        diff = record_diff(rec, fast, ("metrics", "energy_by_component",
+                                       "makespan_s", "goodput"))
+        gap = stage_gap(rec, fast)
+        require(not diff and gap <= 1e-9,
+                f"exp {setup}: the record's {diff} (joules by stage "
+                f"{gap:.3e} apart) differ from the default run")
+        m = rec.metrics
+        log(f"exp {EXP_ARCH} {setup:8s}: streams equal phase 3's; record "
+            f"equal to the exact stepper's without an executor; against "
+            f"the default fast stepper's: metrics equal, joules by stage "
+            f"{gap:.3e} apart (relative); simulated (TPU v5e cost model) "
+            f"median TTFT {m.median_ttft_s:.4f} s, median TPOT "
+            f"{m.median_tpot_s * 1e3:.3f} ms, energy by stage "
+            f"{ {k: round(v, 3) for k, v in rec.energy_by_stage.items()} }")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+def phase_simulator(torch, streams3) -> dict:
+    """Phase 6: 6a, 6b and 6c; returns 6c's launch counts. The port's
+    result cache lives in a temporary directory for the phase."""
+    import tempfile
+    from repro_torch.exp import ResultCache, set_default_cache
+    with tempfile.TemporaryDirectory() as tmp:
+        set_default_cache(ResultCache(str(Path(tmp) / "default")))
+        try:
+            simulated_serving()
+            fig5_smoke(str(Path(tmp) / "fig5"))
+        finally:
+            set_default_cache(None)
+    return real_through_exp(torch, streams3)
 
 
 # ----------------------------------------------------------------------
@@ -1465,7 +1683,7 @@ def main() -> int:
     rows = phase_kernels(torch)
     log(f"phase 2 (kernels): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counted, walls = phase_serving(torch)
+    counted, walls, streams = phase_serving(torch)
     log(f"phase 3 (serving): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_parity(torch)
@@ -1474,6 +1692,10 @@ def main() -> int:
     for k, n in phase_families(torch).items():
         counted[k] += n
     log(f"phase 5 (vlm and encdec): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, n in phase_simulator(torch, streams[EXP_ARCH]).items():
+        counted[k] += n
+    log(f"phase 6 (simulator): {time.perf_counter() - t0:.1f} s")
 
     info = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_prefill.cu",

@@ -1,10 +1,7 @@
 """The paper's subject: disaggregated LLM serving — engines, paged KV pool,
-KV transfer paths, energy model, and the co/dis experiment setups.
-
-The port leaves out ``dvfs``: its frequency sweeps run through ``exp/``
-and ``workload/``, which the port has not taken over yet."""
-from . import (costs, energy, engine, kvcache, orchestrator, prefix_cache,
-               request, transfer)
+KV transfer paths, DVFS energy model, and the co/dis experiment setups."""
+from . import (costs, dvfs, energy, engine, kvcache, orchestrator,
+               prefix_cache, request, transfer)
 from .costs import AcceleratorSpec, ChipSpec, CostModel, HostSpec, \
     DEFAULT_FREQ_GRID
 from .energy import EnergyMeter, ParetoPoint, pareto_frontier, \
@@ -17,6 +14,7 @@ from .prefix_cache import PrefixCache, ReuseResult
 from .request import Request, SLO, WorkloadMetrics, meets_slo, \
     random_workload, summarize
 from .transfer import DiskPath, HostPath, ICIPath, TransferPath, make_path
+from .dvfs import FrequencySweep, best_total_energy, sweep_frequencies
 
 __all__ = [
     "AcceleratorSpec", "ChipSpec", "CostModel", "HostSpec",
@@ -28,4 +26,5 @@ __all__ = [
     "SLO", "WorkloadMetrics", "meets_slo", "random_workload", "summarize",
     "DiskPath",
     "HostPath", "ICIPath", "TransferPath", "make_path",
+    "FrequencySweep", "best_total_energy", "sweep_frequencies",
 ]

@@ -160,12 +160,18 @@ def test_transfer_paths_round_trip_bit_exact(medium, tmp_path):
     assert list(tmp_path.iterdir()) == []      # the disk file is consumed
 
 
-def test_serve_needs_a_card_by_default(monkeypatch):
+def test_serve_needs_a_card_by_default(monkeypatch, tmp_path):
+    """Real mode runs on the card unless told otherwise; simulation mode
+    (the default) runs no model and needs none."""
+    from repro_torch.exp import ResultCache, runner
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve(ARCH, "dis-ici", real=True, smoke=True, verbose=False)
-    with pytest.raises(NotImplementedError):
-        serve(ARCH, "dis-ici", verbose=False)
+    monkeypatch.setattr(runner, "_DEFAULT_CACHE",
+                        ResultCache(str(tmp_path)))
+    res = serve(ARCH, "dis-ici", batch_size=2, input_len=1024,
+                output_len=8, verbose=False)
+    assert res.metrics.median_ttft_s > 0
 
 
 def test_serve_smoke_on_cpu():
