@@ -3,8 +3,9 @@
 
 Phases, each fatal on failure (the script exits non-zero):
 
-  1. card: name, power limit, and the build of all four CUDA kernels
-     from the sources in this checkout (one nvcc per source, all in
+  1. card: name, power limit, and the build of all five CUDA kernels
+     (the four TPU kernels' ports and flash attention's backward) from
+     the sources in this checkout (one nvcc per source, all in
      parallel);
   2. kernels: each kernel against its plain torch version, in bf16 and
      f32, at the shapes of the main paths and around them (flash at hd
@@ -72,7 +73,25 @@ Phases, each fatal on failure (the script exits non-zero):
      prefills and paged 28 x decode steps (counts set to 0 just before
      each run), streams equal to phase 3's, and a record equal to the
      same experiment's without an executor (stepped exactly, as an
-     engine with an executor steps).
+     engine with an executor steps);
+  7. training: (7a) the flash backward kernel against autograd of the
+     plain version in bf16 and f32 at llama32-3b's training shape (q
+     [2,1024,24,128], KV 8, causal), hd 80 and 64, MHA, seamless'
+     cross-attention (S 32, T 1024, non-causal), ragged 1000, a window, a
+     q_offset and rows that see no key, with its time, the plain
+     version's, SDPA's forward + backward where it computes the same
+     function, and the bound; (7b) llama32-3b at full width and depth in
+     bf16, 5 steps of batch 2 x 1024 through
+     ``repro_torch.launch.train.train``: finite losses, launches per step
+     (flash forward 2 x 28 with the checkpoint's recompute, backward 28,
+     no other kernel), step wall, tokens/s, the share of the bf16 peak at
+     6 x params x tokens, peak memory, and one step's profiler trace;
+     (7c) a restart at full width and 2 layers: 4 steps with a checkpoint
+     every 2, then ``train`` again from step 2, whose losses and final
+     params and moments must equal the first run's bit for bit (with the
+     checkpoint directory's filesystem and the save and load times);
+     (7d) one f32 train step at full width and 4 layers, kernels against
+     kernel-free (plain attention, autograd), TF32 off.
 
 It prints the kernels' JSON line and the card's name and power limit
 before its last line, which is
@@ -95,6 +114,7 @@ import argparse
 import ctypes
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1420,6 +1440,330 @@ def phase_simulator(torch, streams3) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 7: training
+# ----------------------------------------------------------------------
+TRAIN_ARCH = "llama32-3b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
+RESTART_LAYERS, PARITY_TRAIN_LAYERS = 2, 4
+TRAIN_LR = 1e-3                  # 7d's AdamW step
+GRAD_TOL = 1e-4                  # 7d: grads against each leaf's largest
+
+
+def flash_bwd_cases():
+    # (label, B, S, T, H, KV, hd, causal, window, q_offset): the training
+    # shape first (llama32-3b at batch 2 x 1024)
+    yield "train", 2, 1024, 1024, 24, 8, 128, True, 0, 0
+    yield "hd80", 1, 1024, 1024, 32, 32, 80, True, 0, 0
+    yield "hd64", 1, 1024, 1024, 16, 8, 64, True, 0, 0
+    yield "mha", 1, 1024, 1024, 16, 16, 128, True, 0, 0
+    yield "cross", 1, 32, 1024, 16, 16, 64, False, 0, 0
+    yield "ragged", 1, 1000, 1000, 24, 8, 128, True, 0, 0
+    yield "window", 1, 1024, 1024, 24, 8, 128, True, 256, 0
+    yield "q_offset", 1, 512, 1536, 24, 8, 128, True, 0, 1024
+    yield "keyless", 1, 100, 120, 4, 2, 32, True, 30, 80   # rows 69.. see no key
+
+
+def plain_flash_grads(torch, q, k, v, dout, **kw):
+    """(dq, dk, dv): autograd of the plain version."""
+    from repro_torch.kernels import ref
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(ref.flash_attention_ref(*qkv, **kw), qkv,
+                               dout)
+
+
+def flash_backward_kernel(torch) -> dict:
+    """7a: the backward kernel against autograd of the plain version, in
+    bf16 and f32, with its time, the plain version's, SDPA's forward +
+    backward where SDPA computes the same function, and the bound (10 hd
+    operations per visible pair: the five products; each input read and
+    each gradient written once). Returns the JSON row (training shape,
+    bf16)."""
+    from repro_torch.kernels import flash_prefill
+    import torch.nn.functional as F
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    g = torch.Generator(device="cuda").manual_seed(7)
+    row = None
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        for (label, B, S, T, H, KV, hd, causal, window,
+             q_offset) in flash_bwd_cases():
+            q, dout = (torch.randn(B, S, H, hd, generator=g,
+                                   device="cuda").to(dt) for _ in range(2))
+            k, v = (torch.randn(B, T, KV, hd, generator=g,
+                                device="cuda").to(dt) for _ in range(2))
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            out = flash_prefill.flash_attention(q, k, v, **kw)
+            got = flash_prefill.flash_attention_backward(q, k, v, out, dout,
+                                                         **kw)
+            want = plain_flash_grads(torch, q, k, v, dout, **kw)
+            torch.cuda.synchronize()
+            err = max(max_err(torch, a, b) for a, b in zip(got, want))
+            ok = all(within(torch, a, b, tol) for a, b in zip(got, want))
+            ms = cuda_ms(torch, lambda: flash_prefill.flash_attention_backward(
+                q, k, v, out, dout, **kw), flush=flush)
+            plain_ms = cuda_ms(torch, lambda: plain_flash_grads(
+                torch, q, k, v, dout, **kw), reps=3, warmup=1)
+            lib_ms = None
+            if window == 0 and q_offset == 0 and (S == T or not causal):
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                              for x in (q, k, v))
+                dot = dout.transpose(1, 2)
+                lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True),
+                    (qt, kt, vt), dot), flush=flush)
+            flops = 10.0 * B * H * hd * flash_pairs(q_offset, S, T, causal,
+                                                    window)
+            nbytes = nbytes_of(q, k, v, out, dout, *got)
+            b_ms, b_by = bound(flops, nbytes, dtype_name)
+            log(f"7a flash backward {label:9s} {dtype_name:8s} B={B} S={S} "
+                f"T={T} H={H} KV={KV} hd={hd} causal={causal} "
+                f"window={window} q_offset={q_offset}: max_abs_err={err:.3e} "
+                f"(tol {tol}, dq dk dv) kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa fwd+bwd "
+                f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it")
+            require(ok, f"flash backward {label} {dtype_name}: max_abs_err "
+                        f"{err:.3e} over tolerance {tol}")
+            if label == "train" and dtype_name == "bfloat16":
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            del q, k, v, out, dout, got, want
+    del flush_buf
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_counts(torch, reset: bool = False) -> dict:
+    """The five launch counts (set to 0 first with ``reset``)."""
+    from repro_torch.kernels import flash_prefill
+    counters = launch_counters()
+    if reset:
+        for fn in counters.values():
+            fn.launches = 0
+        flash_prefill.flash_attention.backward_launches = 0
+    got = {k: fn.launches for k, fn in counters.items()}
+    got["flash_attention_backward"] = \
+        flash_prefill.flash_attention.backward_launches
+    return got
+
+
+def train_full(torch) -> dict:
+    """7b: llama32-3b at full width and depth, bf16, TRAIN_STEPS steps
+    through ``repro_torch.launch.train.train``; returns its launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.train import train
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import build_train_step
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw
+    cfg = get_config(TRAIN_ARCH)
+    L, n_params = cfg.num_layers, get_model(cfg).param_count()
+    tokens = TRAIN_B * TRAIN_S
+    torch.cuda.reset_peak_memory_stats()
+    train_counts(torch, reset=True)
+    t0 = time.perf_counter()
+    losses, wd = train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+                       batch_size=TRAIN_B, seq_len=TRAIN_S, device="cuda",
+                       log_every=1)
+    wall = time.perf_counter() - t0
+    counted = train_counts(torch)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * L * TRAIN_STEPS,
+            "flash_attention_backward": L * TRAIN_STEPS,
+            "paged_attention": 0, "rwkv6_scan": 0, "mamba2_ssd": 0}
+    log(f"7b {TRAIN_ARCH} train, {L} layers, {n_params / 1e9:.3f} B params, "
+        f"bf16, batch {TRAIN_B} x {TRAIN_S}: losses {losses}; launches "
+        f"{counted} (want {want}: forward and the checkpoint's recompute, "
+        f"one backward, per layer and step)")
+    require(len(losses) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), f"7b losses {losses}")
+    require(counted == want, f"7b launches {counted}, want {want}")
+    steps = list(wd.durations)
+    step_s = statistics.median(steps[1:])
+    log(f"7b step walls (s): {[round(x, 4) for x in steps]} (the first "
+        f"warms cuBLAS and builds nothing: the kernels are built); median "
+        f"of the rest {step_s:.4f} s, {tokens / step_s:.0f} tokens/s, "
+        f"{6 * n_params * tokens / step_s / 1e12:.1f} TFLOP/s at "
+        f"6 * params * tokens = {6 * n_params * tokens / step_s / PEAK_FLOPS['bfloat16']:.1%} "
+        f"of the bf16 peak; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); whole call "
+        f"{wall:.1f} s with init")
+    # one more step under the profiler, from fresh weights: busy time
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = get_model(cfg)
+    opt = adamw(1e-3)
+    bundle = build_train_step(cfg, "cuda", InputShape(
+        "train", TRAIN_S, TRAIN_B, "train"), optimizer=opt)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    state = opt.init(params)
+    batch = SyntheticLM(cfg, TRAIN_B, TRAIN_S).next_batch()
+    prof = kernel_time(torch, lambda: bundle.fn(params, state, batch))
+    log(f"7b one train step, profiled: {prof.get('ops')} device ops, busy "
+        f"{prof.get('busy_ms')} ms, span {prof.get('span_ms')} ms; largest "
+        f"{prof.get('top')}")
+    del params, state, bundle, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+def restart_bit_exact(torch) -> None:
+    """7c: llama32-3b at full width, RESTART_LAYERS layers: 4 steps with a
+    checkpoint every 2; then the step-4 checkpoint is set aside and
+    ``train`` runs again from step 2. Steps 3-4 must give the same
+    losses, and step 4 the same params and moments, bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.transfer import mount_of
+    from repro_torch.dist import fault
+    from repro_torch.launch.train import train
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=RESTART_LAYERS)
+    times = {"save": [], "load": []}
+    saved = (fault.save_checkpoint, fault.load_checkpoint)
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return call
+    fault.save_checkpoint = timed(saved[0], "save")
+    fault.load_checkpoint = timed(saved[1], "load")
+    ckdir = tempfile.mkdtemp(prefix="repro-torch-ckpt-")
+    point, fstype = mount_of(ckdir)
+    try:
+        kw = dict(smoke=False, steps=4, batch_size=TRAIN_B,
+                  seq_len=TRAIN_S, ckpt_dir=ckdir, ckpt_every=2,
+                  device="cuda", verbose=False)
+        losses_a, _ = train(cfg, **kw)
+        last = fault.latest_checkpoint(ckdir)
+        a = fault.load_checkpoint(last)
+        size = Path(last).stat().st_size
+        Path(last).unlink()
+        losses_b, _ = train(cfg, **kw)
+        b = fault.load_checkpoint(fault.latest_checkpoint(ckdir))
+    finally:
+        fault.save_checkpoint, fault.load_checkpoint = saved
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = [torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+            for x, y in zip(tree_leaves((a["params"], a["opt_state"])),
+                            tree_leaves((b["params"], b["opt_state"])))]
+    log(f"7c restart, {RESTART_LAYERS} layers at full width: losses "
+        f"uninterrupted {losses_a}, restarted from step 2 {losses_b}; "
+        f"{sum(same)} of {len(same)} params and moments leaves equal bit "
+        f"for bit; checkpoint {size / 1e9:.2f} GB in {ckdir} on a {fstype} "
+        f"filesystem mounted at {point}; save s "
+        f"{[round(x, 2) for x in times['save']]}, load s "
+        f"{[round(x, 2) for x in times['load']]}")
+    require(losses_b == losses_a[2:], "7c restarted losses differ")
+    require(all(same) and a["step"] == b["step"] == 4,
+            "7c restarted params or moments differ")
+
+
+def dense_plain_loss(torch, params, cfg, batch):
+    """Kernel-free loss: the dense model with the plain attention."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    for lp in params["layers"]:
+        q, k, v = TF._attn_in(lp, x, positions, cfg)
+        x = TF._attn_out_mlp(lp, x, ref.flash_attention_ref(q, k, v), cfg)
+    return TF.cross_entropy(L.lm_logits(params["embed"], x, cfg),
+                            batch["targets"])
+
+
+def train_parity(torch) -> None:
+    """7d: one f32 train step at full width, PARITY_TRAIN_LAYERS layers,
+    TF32 off, with the kernels (remat, the Function) and kernel-free
+    (plain attention, autograd), from the same params and batch: loss
+    within 2e-4 relative, grads within GRAD_TOL of each leaf's largest
+    magnitude; the updated params' difference is printed against the
+    leaf's largest and against lr (an Adam step is about lr whatever the
+    gradient's size, so where a gradient is within its error of 0 its
+    element may step either way)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import to_device
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw, tree_leaves, tree_map
+    cfg = get_config(TRAIN_ARCH).replace(
+        num_layers=PARITY_TRAIN_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    batch = to_device(SyntheticLM(cfg, TRAIN_B, TRAIN_S).next_batch(),
+                      "cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    train_counts(torch, reset=True)
+    loss_k, _ = model.loss(params, batch)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    counted = train_counts(torch)
+    loss_p = dense_plain_loss(torch, params, cfg, batch)
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads_k, grads_p))
+    updated = []
+    for grads in (grads_k, grads_p):
+        opt = adamw(TRAIN_LR)
+        p = tree_map(torch.clone, params)
+        opt.update_(list(grads), opt.init(p), p)
+        updated.append(tree_leaves(p))
+    diffs = [(a - b).abs() for a, b in zip(*updated)]
+    p_err = max(float(d.max() / b.abs().max())
+                for d, b in zip(diffs, updated[1]))
+    p_rms = max(float(d.square().mean().sqrt()) for d in diffs)
+    p_max = max(float(d.max()) for d in diffs)
+    flips = sum(int((d > 0.1 * TRAIN_LR).sum()) for d in diffs)
+    log(f"7d f32 train step, {PARITY_TRAIN_LAYERS} layers at full width: "
+        f"loss kernels {loss_k:.6f}, plain {loss_p:.6f} "
+        f"(relative {rel:.2e}, tol 2e-4); grads max |diff| / leaf max "
+        f"{grad_err:.2e} (tol {GRAD_TOL}); launches {counted}; after one "
+        f"AdamW step (lr {TRAIN_LR}) params max |diff| / leaf max "
+        f"{p_err:.2e}, RMS {p_rms:.2e} ({p_rms / TRAIN_LR:.2e} lr), max "
+        f"{p_max:.2e} ({p_max / TRAIN_LR:.2f} lr), {flips} elements past "
+        f"0.1 lr")
+    require(rel <= 2e-4, f"7d loss differs by {rel:.2e}")
+    require(grad_err <= GRAD_TOL, f"7d grads differ by {grad_err:.2e}")
+    require(counted["flash_attention_backward"] == PARITY_TRAIN_LAYERS,
+            f"7d backward launches {counted}")
+    require(p_rms <= 1e-3 * TRAIN_LR and p_max <= 2.0 * TRAIN_LR,
+            f"7d updated params differ: RMS {p_rms:.2e}, max {p_max:.2e}")
+    del params, grads_k, grads_p, updated, diffs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_training(torch):
+    """Phase 7: 7a to 7d; returns (7a's JSON row, 7b's launch counts)."""
+    row = flash_backward_kernel(torch)
+    counted = train_full(torch)
+    restart_bit_exact(torch)
+    train_parity(torch)
+    return row, counted
+
+
+# ----------------------------------------------------------------------
 # diagnostics (not run by default)
 # ----------------------------------------------------------------------
 def windows_only(torch) -> dict:
@@ -1696,6 +2040,12 @@ def main() -> int:
     for k, n in phase_simulator(torch, streams[EXP_ARCH]).items():
         counted[k] += n
     log(f"phase 6 (simulator): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["flash_attention_backward"], trained = phase_training(torch)
+    counted["flash_attention_backward"] = 0
+    for k, n in trained.items():
+        counted[k] += n
+    log(f"phase 7 (training): {time.perf_counter() - t0:.1f} s")
 
     info = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -1706,6 +2056,10 @@ def main() -> int:
                        "src/repro/kernels/rwkv6_scan.py:31"),
         "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
                        "src/repro/kernels/mamba2_ssd.py:32"),
+        "flash_attention_backward": (
+            "src/repro_torch/kernels/csrc/flash_backward.cu",
+            "src/repro/kernels/ref.py:20 (jax.value_and_grad over "
+            "flash_attention_ref; no Pallas backward)"),
     }
     kernels = []
     for name, (source, replaces) in info.items():

@@ -20,7 +20,8 @@ from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("flash_prefill", "paged_decode", "rwkv6_scan", "mamba2_ssd")
+KERNELS = ("flash_prefill", "flash_backward", "paged_decode", "rwkv6_scan",
+           "mamba2_ssd")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

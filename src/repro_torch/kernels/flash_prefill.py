@@ -1,16 +1,27 @@
-"""Flash attention for the prefill stage: the CUDA kernel's wrapper and
-its plain torch version.
+"""Flash attention for the prefill stage and for training: the CUDA
+kernels' wrappers and their plain torch version.
 
 Prefill is the compute-bound stage (paper section II-A) and sets TTFT.
-The kernel (``csrc/flash_prefill.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_prefill.py::_flash_kernel``; its header says what
-bounds it on the H100 and how it is laid out. The wrapper takes the
-plain version only for CPU tensors; for a CUDA tensor it launches the
-kernel or raises.
+The forward kernel (``csrc/flash_prefill.cu``) replaces the Pallas TPU
+kernel ``repro/kernels/flash_prefill.py::_flash_kernel``. The backward
+kernel (``csrc/flash_backward.cu``) has no Pallas counterpart: the
+reference trains through ``jax.value_and_grad`` of the plain version.
+Each header says what bounds the kernel on the H100 and how it is laid
+out.
+
+The wrappers take the plain version only for CPU tensors (autograd
+differentiates it there); for a CUDA tensor they launch a kernel or
+raise. ``flash_attention`` goes through the ``FlashAttention`` autograd
+Function (forward kernel, then the backward kernel) only when grad is
+enabled and an input requires it; otherwise it launches the forward
+kernel alone, as serving does. ``flash_attention.launches`` counts the
+forward kernel's launches, ``flash_attention.backward_launches`` the
+backward's.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -24,6 +35,7 @@ _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _i,
              _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
              _i, _i, _i, _p]
+_BWD_ARGTYPES = [_i, _i, *[_p] * 10, _i, _i, _i, _i, _i, _i, _i, _i, _p]
 
 
 def check_aligned(name: str, t: torch.Tensor) -> None:
@@ -36,6 +48,17 @@ def check_aligned(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: needs a unit-stride last dim and 16-byte "
                        f"aligned base and strides, got strides "
                        f"{t.stride()}")
+
+
+def no_backward(name: str, *tensors) -> None:
+    """A kernel with no backward yet raises under grad, instead of
+    returning an output outside the autograd graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet, "
+                           f"so it cannot run on tensors that require grad "
+                           f"(train this family on the CPU, or run under "
+                           f"torch.no_grad())")
 
 
 def _check(q, k, v):
@@ -68,6 +91,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
+
+
+def _forward(q, k, v, causal: bool, window: int,
+             q_offset: int) -> torch.Tensor:
     _check(q, k, v)
     if window < 0 or q_offset < 0:
         raise ValueError("flash_attention: window and q_offset must be >= 0")
@@ -87,4 +118,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, q_offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is
+    ``out``, for the output gradient ``dout``, in q's dtype. On CPU
+    tensors: autograd of the plain version (``out`` unused)."""
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = plain(*qkv, causal=causal, window=window, q_offset=q_offset)
+            return torch.autograd.grad(o, qkv, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    _check(q, k, v)
+    if window < 0 or q_offset < 0:
+        raise ValueError("flash_attention: window and q_offset must be >= 0")
+    if out.shape != q.shape or dout.shape != q.shape or \
+            dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: out and dout must be "
+                       f"{q.dtype} of q's shape {tuple(q.shape)}")
+    for name, t in (("out", out), ("dout", dout)):
+        check_aligned(name, t)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if S == 0 or T == 0 or B * H == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    launch = _build.launcher("flash_backward", "flash_attention_bwd",
+                             _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch(_DTYPES[q.dtype], hd, *(t.data_ptr() for t in (
+            q, k, v, out, dout, dq, dk, dv, lse, delta)),
+            B, S, T, H, KV, int(causal), int(window), int(q_offset), stream)
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        out = _forward(q, k, v, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout, causal=causal, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 flash_attention.launches = 0
+flash_attention.backward_launches = 0

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .flash_prefill import _DTYPES
+from .flash_prefill import _DTYPES, no_backward
 from .ref import mamba2_ssd_ref as plain
 
 STATE_DIMS = (16, 32, 64, 128)
@@ -76,6 +76,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return plain(x, dt, A, B_mat, C_mat, D, state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_ssd: no kernel for {x.device}")
+    no_backward("mamba2_ssd", x, dt, A, B_mat, C_mat, D, state)
     Bsz, T, NH, P = x.shape
     N = B_mat.shape[-1]
     if state is None:

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build
-from .flash_prefill import _DTYPES, check_aligned
+from .flash_prefill import _DTYPES, check_aligned, no_backward
 from .ref import paged_attention_ref as plain
 
 HEAD_DIMS = (32, 64, 128)   # a multiple of 32: each lane holds hd/32 dims
@@ -141,6 +141,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return plain(q, k_pages, v_pages, block_table, seq_lens)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
+    no_backward("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)

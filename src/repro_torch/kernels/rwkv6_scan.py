@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .flash_prefill import _DTYPES
+from .flash_prefill import _DTYPES, no_backward
 from .ref import rwkv6_scan_ref as plain
 
 HEAD_DIMS = (32, 64, 128)
@@ -95,6 +95,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return plain(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
+    no_backward("rwkv6_scan", r, k, v, w, u, state)
     B, T, NH, hd = r.shape
     if state is None:
         state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,

@@ -15,7 +15,9 @@ Signatures follow the reference, with an explicit ``device`` and
 ``torch.Generator`` for initialisation:
 
   init(generator, device) -> params
-  forward(params, batch) -> logits
+  abstract_params() -> params on the meta device (shapes, no memory)
+  loss(params, batch, remat=True) -> (scalar, metrics)   batch: dict
+  forward(params, batch, remat=False) -> logits
   prefill(params, batch, s_max) -> (logits[B,V], decode_state)
   decode_step(params, tokens[B], state, pos[B]) -> (logits[B,V], state)
   init_decode_state(batch_size, s_max, dtype, device, s_src) -> state
@@ -26,14 +28,22 @@ Signatures follow the reference, with an explicit ``device`` and
 The decode state is ``state_type``: the dense KV cache (AttnCache; dense,
 moe, vlm), the fixed-size recurrent state (RWKVState), the mixed one
 (ZambaState) or self + cross KV (EncDecState).
+
+``train_inputs``, ``prefill_inputs`` and ``decode_inputs(shape)`` are
+the reference's dry-run stand-ins as meta tensors of the reference's
+dtypes; the dense and moe families' decode state is the dense cache
+(``empty_cache``), which the reference decodes from.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import InputShape
+from repro_torch.train.optimizer import tree_leaves
 from . import encdec as ED
 from . import mamba2 as MB
 from . import moe as MOE
@@ -73,10 +83,24 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda") -> Any:
         return self._mod.init(self.cfg, generator, device)
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def abstract_params(self) -> Any:
+        return self.init(torch.Generator(), device="meta")
+
+    def param_count(self) -> int:
+        return sum(math.prod(x.shape)
+                   for x in tree_leaves(self.abstract_params()))
+
+    def loss(self, params, batch: Dict[str, torch.Tensor],
+             remat: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token cross-entropy (the MoE's plus its
+        load-balance loss) and the family's metrics."""
+        return self._mod.loss_fn(params, batch, self.cfg, remat=remat)
+
+    def forward(self, params, batch: Dict[str, torch.Tensor],
+                remat: bool = False) -> torch.Tensor:
         if self.family in _BATCHED:
-            return self._mod.forward(params, batch, self.cfg)
-        out = self._mod.forward(params, batch["tokens"], self.cfg)
+            return self._mod.forward(params, batch, self.cfg, remat)
+        out = self._mod.forward(params, batch["tokens"], self.cfg, remat)
         return out[0] if self.family == "moe" else out    # moe: (logits, aux)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
@@ -138,6 +162,51 @@ class Model:
                 f"{self.family!r} decodes its own state (decode_step)")
         return self._mod.decode_step_paged(params, tokens, k_pages, v_pages,
                                            block_table, pos, self.cfg)
+
+    # ------------------------------------------------------------------
+    # the reference's dry-run stand-ins, as meta tensors
+    # ------------------------------------------------------------------
+    def train_inputs(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if self.family == "encdec":
+            return {"src_embeds": _meta((B, S, cfg.encdec.frontend_dim)),
+                    "tokens": _meta((B, S), torch.int32),
+                    "targets": _meta((B, S), torch.int32)}
+        if self.family == "vlm":
+            Np = cfg.vision.num_patches
+            return {"patches": _meta((B, Np, cfg.vision.frontend_dim)),
+                    "tokens": _meta((B, S - Np), torch.int32),
+                    "targets": _meta((B, S - Np), torch.int32)}
+        return {"tokens": _meta((B, S), torch.int32),
+                "targets": _meta((B, S), torch.int32)}
+
+    def prefill_inputs(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if self.family == "encdec":
+            # prompt == the source utterance; decoder starts from BOS
+            return {"src_embeds": _meta((B, S, cfg.encdec.frontend_dim)),
+                    "tokens": _meta((B, 1), torch.int32)}
+        if self.family == "vlm":
+            Np = cfg.vision.num_patches
+            return {"patches": _meta((B, Np, cfg.vision.frontend_dim)),
+                    "tokens": _meta((B, S - Np), torch.int32)}
+        return {"tokens": _meta((B, S), torch.int32)}
+
+    def decode_inputs(self, shape: InputShape) -> Dict[str, Any]:
+        """serve_step operands: one new token + the seq_len-deep state."""
+        B, S = shape.global_batch, shape.seq_len
+        if self.paged:
+            state = TF.empty_cache(self.cfg, B, S, device="meta")
+        else:
+            state = self.init_decode_state(B, S, device="meta")
+        return {"tokens": _meta((B,), torch.int32), "state": state,
+                "pos": _meta((B,), torch.int32)}
+
+
+def _meta(shape, dtype=torch.bfloat16) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def get_model(cfg: ModelConfig) -> Model:

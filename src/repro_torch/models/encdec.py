@@ -71,16 +71,22 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 # ----------------------------------------------------------------------
 # encoder
 # ----------------------------------------------------------------------
-def encode(params, src_embeds: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def encode(params, src_embeds: torch.Tensor, cfg: ModelConfig,
+           remat: bool = False) -> torch.Tensor:
     """src_embeds: [B, S_src, frontend_dim] -> [B, S_src, d]."""
     fp = params["frontend_proj"]
     x = src_embeds.to(L.dtype_of(cfg.compute_dtype)) @ fp["w"] + fp["b"]
     positions = TF._positions(*x.shape[:2], x.device)
-    for lp in params["encoder"]:
-        q, k, v = TF._attn_in(lp, x, positions, cfg)
+
+    def body(h, lp):
+        q, k, v = TF._attn_in(lp, h, positions, cfg)
         attn = L.flash_gqa(q, k, v, causal=False)
-        x = TF._attn_out_mlp(lp, x, attn, cfg)
+        return TF._attn_out_mlp(lp, h, attn, cfg)
+
+    if remat:
+        body = L.remat_wrap(body)
+    for lp in params["encoder"]:
+        x = body(x, lp)
     return x
 
 
@@ -177,14 +183,31 @@ def _decoder(params, tokens, cross_k, cross_v, cfg: ModelConfig):
     return x, ks, vs
 
 
-def forward(params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = False) -> torch.Tensor:
     """batch: {"src_embeds": [B,S_src,fd], "tokens": [B,S]} -> decoder
-    logits [B, S, V]."""
-    enc_out = encode(params, batch["src_embeds"], cfg)
+    logits [B, S, V]. ``remat``: each encoder and decoder layer is
+    activation-checkpointed."""
+    enc_out = encode(params, batch["src_embeds"], cfg, remat=remat)
     cross_k, cross_v = project_cross_kv(params, enc_out, cfg)
-    x, _, _ = _decoder(params, batch["tokens"], cross_k, cross_v, cfg)
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, cfg)
+    positions = TF._positions(*tokens.shape, tokens.device)
+
+    def body(h, lp, ck, cv):
+        return decoder_block_forward(lp, h, positions, ck, cv, cfg)[0]
+
+    if remat:
+        body = L.remat_wrap(body)
+    for lp, ck, cv in zip(params["decoder"], cross_k, cross_v):
+        x = body(x, lp, ck, cv)
     return L.lm_logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True):
+    logits = forward(params, batch, cfg, remat=remat)
+    return TF.cross_entropy(logits, batch["targets"], batch.get("mask")), {}
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

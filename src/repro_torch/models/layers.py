@@ -10,7 +10,7 @@ Conventions, as in ``repro.models.layers``:
 
 Only the default branches are ported: the ``opt_flags`` switches
 (``pad_heads``, ``head_shard_attn``, ``masked_cache_update``,
-``bf16_logits``) come with ``dist/``.
+``bf16_logits``, ``remat_dots``) come with ``dist/``.
 """
 from __future__ import annotations
 
@@ -19,11 +19,22 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
+
+
+def remat_wrap(body):
+    """Activation-checkpoint a layer body (the reference's
+    ``jax.checkpoint``): its activations are dropped after the forward
+    pass and recomputed in the backward pass. The reference's
+    ``remat_dots`` policy comes with ``dist/opt_flags``."""
+    def wrapped(*args):
+        return checkpoint(body, *args, use_reentrant=False)
+    return wrapped
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from . import layers as L
+from . import transformer as TF
 
 
 class ZambaState(NamedTuple):
@@ -256,16 +257,33 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            window: int = 0) -> torch.Tensor:
-    """tokens: [B, S] -> logits [B, S, V]."""
+            remat: bool = False, window: int = 0) -> torch.Tensor:
+    """tokens: [B, S] -> logits [B, S, V]. ``remat``: each group (the
+    shared block's call and its Mamba2 layers) is
+    activation-checkpointed, as the reference wraps its group body."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
     positions = _positions(B, S, tokens.device)
-    for group in _groups(params, cfg):
-        x = shared_attn_seq(params["shared_attn"], x, positions, cfg, window)
+
+    def group_body(h, group):
+        h = shared_attn_seq(params["shared_attn"], h, positions, cfg, window)
         for lp in group:
-            x = x + mamba_seq(lp, x, cfg)[0]
+            h = h + mamba_seq(lp, h, cfg)[0]
+        return h
+
+    if remat:
+        group_body = L.remat_wrap(group_body)
+    for group in _groups(params, cfg):
+        x = group_body(x, group)
     return L.lm_logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True):
+    """Differentiable on the CPU only: the SSD kernel has no backward
+    yet, and raises under grad on the card."""
+    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    return TF.cross_entropy(logits, batch["targets"], batch.get("mask")), {}
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -275,11 +275,32 @@ def _run(params, tokens: torch.Tensor, cfg: ModelConfig):
     return x, aux_total, ks, vs
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] -> (logits [B, S, V], aux_loss)."""
-    x, aux, _, _ = _run(params, tokens, cfg)
-    return L.lm_logits(params["embed"], x, cfg), aux
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, S] -> (logits [B, S, V], aux_loss). ``remat``: each
+    layer is activation-checkpointed."""
+    x = L.embed(params["embed"], tokens, cfg)
+    positions = TF._positions(*tokens.shape, tokens.device)
+
+    def body(h, lp, dense):
+        h, aux, _ = block_forward(lp, h, positions, cfg, dense)
+        return h, aux
+
+    if remat:
+        body = L.remat_wrap(body)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for lp, dense in _blocks(params):
+        x, aux = body(x, lp, dense)
+        aux_total = aux_total + aux
+    return L.lm_logits(params["embed"], x, cfg), aux_total
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True):
+    """-> (cross-entropy + the load-balance loss, {"aux_loss", "ce"})."""
+    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ce = TF.cross_entropy(logits, batch["targets"], batch.get("mask"))
+    return ce + aux, {"aux_loss": aux, "ce": ce}
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from . import layers as L
+from . import transformer as TF
 
 
 class RWKVState(NamedTuple):
@@ -238,12 +239,28 @@ def block_step(p, x: torch.Tensor, cfg: ModelConfig, state: Tuple):
 # ----------------------------------------------------------------------
 # model-level entry points
 # ----------------------------------------------------------------------
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens: [B, S] -> logits [B, S, V]."""
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: [B, S] -> logits [B, S, V]. ``remat``: each layer is
+    activation-checkpointed."""
     x = L.embed(params["embed"], tokens, cfg)
+
+    def body(h, lp):
+        return block_seq(lp, h, cfg)[0]
+
+    if remat:
+        body = L.remat_wrap(body)
     for lp in params["layers"]:
-        x, _ = block_seq(lp, x, cfg)
+        x = body(x, lp)
     return L.lm_logits(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True):
+    """Differentiable on the CPU only: the scan kernel has no backward
+    yet, and raises under grad on the card."""
+    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    return TF.cross_entropy(logits, batch["targets"], batch.get("mask")), {}
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,

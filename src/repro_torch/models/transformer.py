@@ -1,8 +1,10 @@
 """Dense decoder-only GQA transformer (yi-34b / qwen3 / command-r / qwen2 /
 llama32-3b), the port of ``repro.models.transformer``.
 
-Entry points (the serving split the paper studies):
-  forward            full-sequence forward (causal)
+Entry points (the serving split the paper studies, and training):
+  forward            full-sequence forward (causal); ``remat``
+                     activation-checkpoints each layer
+  loss_fn            mean next-token cross-entropy (f32) of ``forward``
   prefill            full-sequence forward that also returns the dense KV
   decode_step        one token against a dense KV cache (the reference's
                      decode; plain torch attention)
@@ -112,20 +114,28 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def forward_from_embeddings(params, x: torch.Tensor,
-                            positions: torch.Tensor,
-                            cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, d] pre-embedded inputs -> logits [B, S, V] (VLM path)."""
+                            positions: torch.Tensor, cfg: ModelConfig,
+                            remat: bool = False) -> torch.Tensor:
+    """x: [B, S, d] pre-embedded inputs -> logits [B, S, V] (VLM path).
+    ``remat``: each layer is activation-checkpointed."""
+    def body(h, lp):
+        return block_forward(lp, h, positions, cfg)
+
+    if remat:
+        body = L.remat_wrap(body)
     for lp in params["layers"]:
-        x = block_forward(lp, x, positions, cfg)
+        x = body(x, lp)
     return L.lm_logits(params["embed"], x, cfg)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            remat: bool = False) -> torch.Tensor:
     """tokens: [B, S] -> logits [B, S, V]."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
     return forward_from_embeddings(params, x,
-                                   _positions(B, S, tokens.device), cfg)
+                                   _positions(B, S, tokens.device), cfg,
+                                   remat)
 
 
 def stack_cache(ks: List[torch.Tensor], vs: List[torch.Tensor],
@@ -215,6 +225,25 @@ def decode_step_paged(params, tokens: torch.Tensor, k_pages: torch.Tensor,
                                    block_table, seq_lens)
         x = _attn_out_mlp(lp, x, attn[:, None], cfg, ffn)
     return L.lm_logits(params["embed"], x, cfg)[:, 0]
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    return cross_entropy(logits, batch["targets"], batch.get("mask")), {}
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL in f32; with ``mask``, over the masked-in
+    positions."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.take_along_dim(logp, targets.long()[..., None],
+                                dim=-1)[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def empty_cache(cfg: ModelConfig, batch: int, s_max: int,

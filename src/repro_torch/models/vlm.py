@@ -47,14 +47,20 @@ def _combined_embeddings(params, patches: torch.Tensor,
     return x, TF._positions(*x.shape[:2], x.device)
 
 
-def forward(params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = False) -> torch.Tensor:
     """batch: {"patches": [B,Np,fd], "tokens": [B,S]} -> logits over the
     text positions [B, S, V]."""
     patches, tokens = batch["patches"], batch["tokens"]
     x, positions = _combined_embeddings(params, patches, tokens, cfg)
-    logits = TF.forward_from_embeddings(params, x, positions, cfg)
+    logits = TF.forward_from_embeddings(params, x, positions, cfg, remat)
     return logits[:, patches.shape[1]:]
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True):
+    logits = forward(params, batch, cfg, remat=remat)
+    return TF.cross_entropy(logits, batch["targets"], batch.get("mask")), {}
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

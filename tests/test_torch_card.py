@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: each against its plain torch version,
-and the reduced models' prefill + decode on the card against the same on
-the CPU. They skip without a card (the kernels have no CPU mode). This file imports neither jax nor the reference, so it also runs
+"""The CUDA kernels on the card: each against its plain torch version
+(flash's backward through autograd), the kernels without a backward
+raising under grad, a train step and the reduced models' prefill +
+decode on the card against the same on the CPU. They skip without a card (the kernels have no CPU mode). This file imports neither jax nor the reference, so it also runs
 on a machine that has only torch:
 
   python -m pytest --noconftest -q tests/test_torch_card.py
@@ -14,6 +15,7 @@ from repro_torch.core import DevicePagedKV, PagedKVPool  # noqa: E402
 from repro_torch.kernels import (flash_prefill, mamba2_ssd, paged_decode,  # noqa: E402
                                  ref, rwkv6_scan)
 from repro_torch.models import get_model, moe  # noqa: E402
+from repro_torch.train.optimizer import tree_leaves  # noqa: E402
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
@@ -411,3 +413,109 @@ def test_new_families_match_cpu(card, arch):
         out[dev] = (first.cpu(), nxt.cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+# ----------------------------------------------------------------------
+# the flash backward kernel, and the kernels that have no backward yet
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,H,KV,hd,causal,window,q_offset", [
+    (200, 200, 8, 2, 64, True, 0, 0), (77, 333, 4, 4, 32, False, 0, 0),
+    (300, 300, 6, 2, 128, True, 40, 0), (130, 130, 4, 4, 80, True, 0, 0),
+    (64, 256, 4, 2, 128, True, 0, 192),       # q_offset, one query tile
+    (100, 120, 4, 2, 32, True, 30, 80),       # rows 69.. see no key
+    (1, 100, 16, 16, 64, False, 0, 0),        # one query row
+])
+def test_flash_backward_kernel_matches_plain(card, dtype, S, T, H, KV, hd,
+                                             causal, window, q_offset):
+    """dq, dk, dv through the FlashAttention Function (forward and
+    backward kernels) against autograd of the plain version."""
+    shapes = ((2, S, H, hd), (2, T, KV, hd), (2, T, KV, hd))
+    q, k, v = (torch.randn(s, generator=card, device="cuda").to(dtype)
+               for s in shapes)
+    dout = torch.randn(2, S, H, hd, generator=card, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    grads = {}
+    for name, fn in (("kernel", flash_prefill.flash_attention),
+                     ("plain", ref.flash_attention_ref)):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads[name] = torch.autograd.grad(fn(*qkv, **kw), qkv, dout)
+    fwd, bwd = (flash_prefill.flash_attention.launches,
+                flash_prefill.flash_attention.backward_launches)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(flash_prefill.flash_attention(*qkv, **kw), qkv, dout)
+    assert (flash_prefill.flash_attention.launches,
+            flash_prefill.flash_attention.backward_launches) == (fwd + 1,
+                                                                 bwd + 1)
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_backward_is_deterministic(card):
+    q = torch.randn(2, 256, 8, 128, generator=card, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(2, 256, 2, 128, generator=card, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    out = flash_prefill.flash_attention(q, k, v)
+    dout = torch.randn_like(out)
+    a = flash_prefill.flash_attention_backward(q, k, v, out, dout)
+    b = flash_prefill.flash_attention_backward(q, k, v, out, dout)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_kernels_without_backward_raise_under_grad(card):
+    x = torch.randn(1, 64, 2, 64, generator=card, device="cuda",
+                    requires_grad=True)
+    w = torch.rand(1, 64, 2, 64, generator=card, device="cuda")
+    with pytest.raises(RuntimeError, match="rwkv6_scan: .*no backward"):
+        rwkv6_scan.rwkv6_scan(x, x, x, w, torch.zeros(2, 64, device="cuda"))
+    dt = torch.rand(1, 64, 2, generator=card, device="cuda")
+    Bm = torch.randn(1, 64, 64, generator=card, device="cuda")
+    with pytest.raises(RuntimeError, match="mamba2_ssd: .*no backward"):
+        mamba2_ssd.mamba2_ssd(x, dt, -torch.ones(2, device="cuda"), Bm, Bm)
+    q = torch.randn(2, 4, 64, generator=card, device="cuda",
+                    requires_grad=True)
+    pages = torch.randn(4, 16, 2, 64, generator=card, device="cuda")
+    bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([20, 30], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="paged_attention: .*no backward"):
+        paged_decode.paged_attention(q, pages, pages, bt, lens)
+    with torch.no_grad():                  # serving runs as before
+        paged_decode.paged_attention(q, pages, pages, bt, lens)
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["rwkv6-3b"])
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=card,
+                         device="cuda")
+    with pytest.raises(RuntimeError, match="rwkv6_scan: .*no backward"):
+        model.loss(params, {"tokens": toks, "targets": toks})
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Two f32 steps of the reduced llama's train step (flash forward and
+    backward kernels on the card) from the same params and batches as on
+    the CPU: the same losses within 2e-4 (the second one after an
+    update)."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.serve.steps import build_train_step
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["llama32-3b"])
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        opt = adamw(1e-3)
+        step = build_train_step(cfg, dev, InputShape("t", 128, 2, "train"),
+                                optimizer=opt)
+        p = _to(params, dev)
+        state, data, losses = opt.init(p), SyntheticLM(cfg, 2, 128), []
+        for _ in range(2):
+            p, state, loss = step.fn(p, state, data.next_batch())
+            losses.append(loss.cpu())
+        out[dev] = torch.stack(losses)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=0, rtol=2e-4)
