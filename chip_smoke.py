@@ -11,8 +11,8 @@ Phases, each fatal on failure (the script exits non-zero):
      f32, at the shapes of the main paths and around them (flash at hd
      128 and hd 80, MHA at hd 128 (deepseek-moe-16b), non-causal at hd 64
      with S != T and with one query row (seamless-m4t-medium's encoder
-     and cross-attention), ragged lengths, partial tiles, carried
-     states, B=2, single steps), with times (median of CUDA events), the plain
+     and cross-attention), ragged lengths, partial tiles, rows that see
+     no key, carried states, B=2, single steps), with times (median of CUDA events), the plain
      version's time, the card's bound and the share of it reached (the
      rwkv6 scan also at decays near 0 and near 1, T 37 and T 1, each line
      naming the kernel that ran, chunked or step), for
@@ -78,9 +78,11 @@ Phases, each fatal on failure (the script exits non-zero):
      plain version in bf16 and f32 at llama32-3b's training shape (q
      [2,1024,24,128], KV 8, causal), hd 80 and 64, MHA, seamless'
      cross-attention (S 32, T 1024, non-causal), ragged 1000, a window, a
-     q_offset and rows that see no key, with its time, the plain
-     version's, SDPA's forward + backward where it computes the same
-     function, and the bound; (7b) llama32-3b at full width and depth in
+     q_offset and rows that see no key, given the forward's log-sum-exp
+     (held to the plain one), with the route each shape took (bf16 on
+     wgmma, f32 on the CUDA cores), its time, the plain version's, SDPA's
+     backward alone where it computes the same function, both forward +
+     backward, and the bound; (7b) llama32-3b at full width and depth in
      bf16, 5 steps of batch 2 x 1024 through
      ``repro_torch.launch.train.train``: finite losses, launches per step
      (flash forward 2 x 28 with the checkpoint's recompute, backward 28,
@@ -276,6 +278,7 @@ def flash_cases():
     yield "cross", 1, 32, 1024, 16, 16, 64, False, 0, 0
     yield "cross1", 1, 1, 1024, 16, 16, 64, False, 0, 0
     yield "bos", 1, 1, 1, 16, 16, 64, True, 0, 0
+    yield "keyless", 1, 100, 120, 4, 2, 32, True, 30, 80   # rows 69.. see no key
 
 
 def paged_cases():
@@ -1473,12 +1476,15 @@ def plain_flash_grads(torch, q, k, v, dout, **kw):
 
 def flash_backward_kernel(torch) -> dict:
     """7a: the backward kernel against autograd of the plain version, in
-    bf16 and f32, with its time, the plain version's, SDPA's forward +
-    backward where SDPA computes the same function, and the bound (10 hd
-    operations per visible pair: the five products; each input read and
-    each gradient written once). Returns the JSON row (training shape,
-    bf16)."""
-    from repro_torch.kernels import flash_prefill
+    bf16 and f32, given the forward's log-sum-exp (itself held to the
+    plain one), with the route each shape took, its time, the plain
+    version's (forward + backward), SDPA's backward alone where SDPA
+    computes the same function (its forward outside the window), the
+    port's and SDPA's forward + backward, and the bound (10 hd operations
+    per visible pair: the five products; each input, lse included, read
+    and each gradient written once). Returns the JSON row (training
+    shape, bf16)."""
+    from repro_torch.kernels import flash_prefill, ref
     import torch.nn.functional as F
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
@@ -1487,6 +1493,7 @@ def flash_backward_kernel(torch) -> dict:
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
+        route = flash_prefill.backward_route(dt)
         for (label, B, S, T, H, KV, hd, causal, window,
              q_offset) in flash_bwd_cases():
             q, dout = (torch.randn(B, S, H, hd, generator=g,
@@ -1494,43 +1501,74 @@ def flash_backward_kernel(torch) -> dict:
             k, v = (torch.randn(B, T, KV, hd, generator=g,
                                 device="cuda").to(dt) for _ in range(2))
             kw = dict(causal=causal, window=window, q_offset=q_offset)
-            out = flash_prefill.flash_attention(q, k, v, **kw)
-            got = flash_prefill.flash_attention_backward(q, k, v, out, dout,
-                                                         **kw)
+            out, lse = flash_prefill.flash_attention_with_lse(q, k, v, **kw)
+            lse_want = ref.flash_attention_lse_ref(q, k, **kw)
+            got = flash_prefill.flash_attention_backward(
+                q, k, v, out, dout, lse=lse, **kw)
             want = plain_flash_grads(torch, q, k, v, dout, **kw)
             torch.cuda.synchronize()
             err = max(max_err(torch, a, b) for a, b in zip(got, want))
+            lse_err = max_err(torch, lse, lse_want)
             ok = all(within(torch, a, b, tol) for a, b in zip(got, want))
             ms = cuda_ms(torch, lambda: flash_prefill.flash_attention_backward(
-                q, k, v, out, dout, **kw), flush=flush)
+                q, k, v, out, dout, lse=lse, **kw), flush=flush)
+
+            def port_fwd_bwd():
+                o, m = flash_prefill.flash_attention_with_lse(q, k, v, **kw)
+                flash_prefill.flash_attention_backward(q, k, v, o, dout,
+                                                       lse=m, **kw)
+            both_ms = cuda_ms(torch, port_fwd_bwd, flush=flush)
             plain_ms = cuda_ms(torch, lambda: plain_flash_grads(
                 torch, q, k, v, dout, **kw), reps=3, warmup=1)
-            lib_ms = None
+            lib_ms = lib_both_ms = None
             if window == 0 and q_offset == 0 and (S == T or not causal):
                 qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                               for x in (q, k, v))
                 dot = dout.transpose(1, 2)
-                lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                lib_both_ms = cuda_ms(torch, lambda: torch.autograd.grad(
                     F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal, enable_gqa=True),
                     (qt, kt, vt), dot), flush=flush)
+                o_lib = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+                lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                    o_lib, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+                del o_lib
             flops = 10.0 * B * H * hd * flash_pairs(q_offset, S, T, causal,
                                                     window)
-            nbytes = nbytes_of(q, k, v, out, dout, *got)
+            nbytes = nbytes_of(q, k, v, out, dout, *got) + 4 * lse.numel()
             b_ms, b_by = bound(flops, nbytes, dtype_name)
             log(f"7a flash backward {label:9s} {dtype_name:8s} B={B} S={S} "
                 f"T={T} H={H} KV={KV} hd={hd} causal={causal} "
-                f"window={window} q_offset={q_offset}: max_abs_err={err:.3e} "
-                f"(tol {tol}, dq dk dv) kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa fwd+bwd "
+                f"window={window} q_offset={q_offset}, route {route}: "
+                f"max_abs_err={err:.3e} (tol {tol}, dq dk dv; lse "
+                f"{lse_err:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, sdpa bwd "
                 f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it")
+                f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; fwd+bwd "
+                f"port {both_ms:.4f} ms, sdpa "
+                f"{lib_both_ms if lib_both_ms is None else round(lib_both_ms, 4)}"
+                f" ms")
             require(ok, f"flash backward {label} {dtype_name}: max_abs_err "
                         f"{err:.3e} over tolerance {tol}")
+            require(within(torch, lse, lse_want, tol),
+                    f"flash forward lse {label} {dtype_name}: max_abs_err "
+                    f"{lse_err:.3e} over tolerance {tol}")
+            if label == "train":   # ten calls: a trace of one can miss some
+                prof = kernel_time(torch, lambda: [
+                    flash_prefill.flash_attention_backward(
+                        q, k, v, out, dout, lse=lse, **kw)
+                    for _ in range(10)])
+                log(f"7a flash backward train {dtype_name}, 10 calls "
+                    f"profiled: {prof.get('ops')} device ops, busy "
+                    f"{prof.get('busy_ms')} ms; by name [name, ms, calls] "
+                    f"{prof.get('top')}")
             if label == "train" and dtype_name == "bfloat16":
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-            del q, k, v, out, dout, got, want
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                           design=f"bf16 on {route} + TMA (f32 on the CUDA "
+                                  f"cores), the forward's lse")
+            del q, k, v, out, lse, dout, got, want
     del flush_buf
     torch.cuda.empty_cache()
     return row
@@ -1884,10 +1922,11 @@ def ablated_builds(kernel: str) -> dict:
 
 
 def flash_ablation(torch) -> dict:
-    """``--flash-ablation``: the bf16 flash kernel as built and built with
-    FLASH_ABLATE = 1, 2, 3, each of which switches one part of it off
-    (its output is then wrong), timed at the main shape, at S = 8192 and
-    at hd 64 and 80: what each part costs the kernel."""
+    """``--flash-ablation``: the bf16 flash kernel as built (also with the
+    log-sum-exp that training keeps) and built with FLASH_ABLATE = 1, 2,
+    3, each of which switches one part of it off (its output is then
+    wrong), timed at the main shape, at S = 8192 and at hd 64 and 80:
+    what each part costs the kernel."""
     from repro_torch.kernels import flash_prefill
     fns = {}
     for n, lib in ablated_builds("flash").items():
@@ -1917,6 +1956,9 @@ def flash_ablation(torch) -> dict:
         reps = 5 if S >= 8192 else 20
         t = {"as built": cuda_ms(torch, lambda: flash_prefill.flash_attention(
             q, k, v, causal=True), reps=reps, flush=flush)}
+        t["as built, with lse"] = cuda_ms(
+            torch, lambda: flash_prefill.flash_attention_with_lse(
+                q, k, v, causal=True), reps=reps, flush=flush)
         for n, what in ABLATIONS["flash"][2].items():
             t[what] = cuda_ms(torch, lambda: launch(fns[n], q, k, v, o),
                               reps=reps, flush=flush)

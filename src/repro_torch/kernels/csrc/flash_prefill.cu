@@ -23,7 +23,15 @@
 // of the tile's last row and start it at the window's edge of its first
 // row, mask the rest per row (kpos < T, causal, window), keep scores in
 // the log2 domain, honour q_offset, read inputs in place by their
-// strides, and schedule causal tiles heaviest (last) first.
+// strides, and schedule causal tiles heaviest (last) first. After the
+// key loop, both can write each row's log-sum-exp (log2 domain, scale
+// folded in: m + log2(l)) for the backward kernel (flash_backward.cu);
+// the bf16 kernel has an instantiation with that store and one without,
+// for serving. A row that sees no key (window > 0 and q_offset + row >=
+// T + window - 1) gets the plain version's answer from a pass of its own
+// (keyless_rows), launched only when such rows exist: its scores are all
+// masked, so its softmax is uniform over the T keys and its output is
+// the mean of V.
 //
 // bf16 (flash_fwd_hopper): a block owns 128 query rows and has three
 // warpgroups. The producer warpgroup gives its registers away
@@ -57,13 +65,12 @@
 // (hd 128 is split in two so q and acc fit in registers); the partial dot
 // products meet through one shuffle, and the accumulator is rescaled once
 // per 16 keys.
-#include <cuda.h>  // CUtensorMap and the driver API types
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace repro_torch;
+using namespace repro_torch::hopper;
 
 constexpr int kThreads = 128;
 constexpr int kBlockK = 64;   // keys staged in shared memory per tile
@@ -74,7 +81,8 @@ struct Params {  // strides in elements
   const void* k;
   const void* v;
   void* o;
-  int B, S, T, H, KV;
+  float* lse;   // [B, H, Sp] or null
+  int B, S, T, H, KV, Sp;
   long long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;
   int causal, window, q_offset;
   float scale_log2;
@@ -211,6 +219,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
     }
   }
 
+  if (p.lse != nullptr && part == 0 && row < p.Sp)
+    p.lse[((long long)b * p.H + h) * p.Sp + row] =
+        active && l > 0.f ? m + log2f(l) : 0.f;
   if (active) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
     float* op = static_cast<float*>(p.o) +
@@ -248,15 +259,12 @@ int dispatch_f32(int hd, const Params& p, cudaStream_t stream) {
 // ----------------------------------------------------------------------
 // bf16 on the tensor cores: wgmma + TMA, warp-specialised
 // ----------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
-
 constexpr int kConsumers = 2;                    // warpgroups of query rows
 constexpr int kRowsWG = 64;                      // query rows per warpgroup
 constexpr int kHopRows = kConsumers * kRowsWG;   // query rows per block
 constexpr int kKeys = 64;                        // keys per K/V tile
 constexpr int kStages = 3;                       // depth of the K/V ring
 constexpr int kHopThreads = (kConsumers + 1) * 128;
-constexpr long long kWatchdogCycles = 1ll << 33;  // a few seconds
 // Diagnostic builds only (chip_smoke.py --flash-ablation) switch one part
 // of the bf16 kernel off, leaving its output wrong: 1 the softmax
 // arithmetic (P = bf16(S)), 2 O += P V, 3 S = Q K^T (S = 0).
@@ -264,21 +272,6 @@ constexpr long long kWatchdogCycles = 1ll << 33;  // a few seconds
 #define FLASH_ABLATE 0
 #endif
 constexpr int kAblate = FLASH_ABLATE;
-
-// One TMA box is 64 rows by kBoxD columns: rows of kRowBytes, which is
-// also the swizzle span, so that wgmma reads the tile without bank
-// conflicts. hd 80 (160-byte rows) fits no 128-byte swizzle, so it is
-// cut into five 32-byte boxes.
-template <int HD>
-struct HopTile {
-  static constexpr int kBoxD = HD == 32 ? 32 : HD == 80 ? 16 : 64;
-  static constexpr int kBoxes = HD / kBoxD;
-  static constexpr int kRowBytes = kBoxD * 2;
-  static constexpr int kBoxBytes = 64 * kRowBytes;
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // 64 rows of Q, K or V
-  static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
-  static constexpr int kSbo = 8 * kRowBytes;              // to the next 8 rows
-};
 
 template <int HD>
 struct HopSmem {  // byte offsets from a 1024-aligned base
@@ -292,191 +285,17 @@ struct HopSmem {  // byte offsets from a 1024-aligned base
 
 struct HopParams {
   void* o;
-  int B, S, T, H, KV;
+  float* lse;      // [B, H, Sp] (kLse)
+  int B, S, T, H, KV, Sp;
   int causal, window, q_offset;
   float scale_log2;
   // coordinate slot (1..3) of the row, head and batch dims in each map
   int q_row, q_head, q_b, k_row, k_head, k_b, v_row, v_head, v_b;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Wait for the phase of parity `parity` to complete; trap rather than
-// hang if it never does.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-// the coordinate in slot `slot` of a map whose row, head and batch dims
-// sit in slots (sr, sh, sb)
-__device__ __forceinline__ int coord(int slot, int sr, int sh, int row,
-                                     int head, int b) {
-  return slot == sr ? row : slot == sh ? head : b;
-}
-
-// wgmma shared-memory matrix descriptor: start, leading and stride byte
-// offsets (16-byte units) and the swizzle layout.
-__device__ __forceinline__ uint64_t make_desc(const void* ptr, int lbo,
-                                              int sbo, int layout) {
-  const uint64_t a = smem_u32(ptr);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
-         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(layout) << 62);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {   // at most N groups pending
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving register reads or writes across the
-// asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (+)= A (registers) * B (smem, K-major), m64n64k16; d is zeroed first
-// when !accumulate.
-__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-// d += A (registers) * B (smem, MN-major: transposed), m64n64k16
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// d += A (registers) * B (smem, MN-major: transposed), m64n32k16
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// d += A (registers) * B (smem, MN-major: transposed), m64n16k16
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-
-// 2^x in one MUFU instruction (flush to zero below 2^-126; -inf -> 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-
-template <int HD>
+// kLse: also write each row's log-sum-exp (a separate instantiation, so
+// that serving's kernel carries none of it).
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kHopThreads, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
@@ -785,6 +604,11 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (kLse && tq == 0) {   // log2 domain, scale folded in
+    float* lse = p.lse + ((long long)b * p.H + h) * p.Sp;
+    if (r0 < p.Sp) lse[r0] = r0 < p.S && l0 > 0.f ? m0 + log2f(l0) : 0.f;
+    if (r1 < p.Sp) lse[r1] = r1 < p.S && l1 > 0.f ? m1 + log2f(l1) : 0.f;
+  }
   bf16* ob = static_cast<bf16*>(p.o) + (long long)h * HD + 2 * tq;
   const long long row_stride = (long long)p.H * HD;
 #pragma unroll
@@ -800,81 +624,15 @@ __global__ void __launch_bounds__(kHopThreads, 1)
   }
 }
 
-// ---- host side: tensor maps through the driver's entry point ----------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A TMA map over a strided bf16 [B, L, heads, hd] tensor, read in place:
-// boxes of 64 rows of one (batch, head) by box_d columns; rows past L are
-// zero-filled. The three outer dims are ordered by stride; slot[d] gets
-// the coordinate slot of dim d (0 rows, 1 heads, 2 batch).
-int encode_map(CUtensorMap* map, int (&slot)[3], const void* base, int hd,
-               int L, int heads, int B, long long sl, long long sh,
-               long long sb, int box_d, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const long long stride[3] = {sl, sh, sb};
-  const int extent[3] = {L, heads, B};
-  const int box[3] = {kKeys, 1, 1};
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int t = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t boxes[4] = {(cuuint32_t)box_d, 0, 0, 0};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    const int d = order[i];
-    dims[i + 1] = (cuuint64_t)extent[d];
-    strides[i] = (cuuint64_t)stride[d] * sizeof(bf16);
-    boxes[i + 1] = (cuuint32_t)box[d];
-    slot[d] = i + 1;
-  }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, boxes, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-template <int HD>
+template <int HD, bool kLse>
 int launch_hopper(const Params& p, cudaStream_t stream) {
   using TL = HopTile<HD>;
   constexpr int smem = HopSmem<HD>::bytes + 1024;   // + alignment slack
-  const CUtensorMapSwizzle swizzle =
-      TL::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : TL::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = tile_swizzle<HD>();
   HopParams hp;
   hp.o = p.o;
-  hp.B = p.B; hp.S = p.S; hp.T = p.T; hp.H = p.H; hp.KV = p.KV;
+  hp.lse = p.lse;
+  hp.B = p.B; hp.S = p.S; hp.T = p.T; hp.H = p.H; hp.KV = p.KV; hp.Sp = p.Sp;
   hp.causal = p.causal; hp.window = p.window; hp.q_offset = p.q_offset;
   hp.scale_log2 = p.scale_log2;
   CUtensorMap mq, mk, mv;
@@ -894,30 +652,91 @@ int launch_hopper(const Params& p, cudaStream_t stream) {
   static bool attr_set = false;   // once per process and head dim
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_hopper<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_hopper<HD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid(p.H, (p.S + kHopRows - 1) / kHopRows, p.B);
-  flash_fwd_hopper<HD><<<grid, kHopThreads, smem, stream>>>(mq, mk, mv, hp);
+  flash_fwd_hopper<HD, kLse><<<grid, kHopThreads, smem, stream>>>(mq, mk, mv,
+                                                                 hp);
   return (int)cudaGetLastError();
 }
 
+template <bool kLse>
 int dispatch_bf16(int hd, const Params& p, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_hopper<32>(p, stream);
-    case 64: return launch_hopper<64>(p, stream);
-    case 80: return launch_hopper<80>(p, stream);
-    case 128: return launch_hopper<128>(p, stream);
+    case 32: return launch_hopper<32, kLse>(p, stream);
+    case 64: return launch_hopper<64, kLse>(p, stream);
+    case 80: return launch_hopper<80, kLse>(p, stream);
+    case 128: return launch_hopper<128, kLse>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ----------------------------------------------------------------------
+// rows that see no key
+// ----------------------------------------------------------------------
+// A row that no key is visible to (window > 0 and q_offset + row >= T +
+// window - 1: rows [first, S)) gets the plain version's answer: its
+// scores are all masked, so its softmax is uniform over the T keys and
+// its output is the mean of V. The key loops leave such rows 0 (and
+// their log-sum-exp 0); this pass, launched only when they exist, writes
+// them: a block per (row, head, batch), a thread per column, a plain
+// loop over the T keys.
+template <typename T>
+__global__ void keyless_rows(const Params p, int first, int hd) {
+  const int row = first + blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int d = threadIdx.x;
+  if (d >= hd) return;
+  const int kvh = h / (p.H / p.KV);
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + kvh * p.svh + d;
+  float sum = 0.f;
+  for (int t = 0; t < p.T; ++t) sum += to_float(v[t * p.svs]);
+  store_from_float(static_cast<T*>(p.o) +
+                       (((long long)b * p.S + row) * p.H + h) * hd + d,
+                   sum * (1.f / p.T));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the output
-// is contiguous [B, S, H, hd]. Returns cudaGetLastError() after launch.
+// is contiguous [B, S, H, hd]; lse, where not null, is f32 [B, H, Sp],
+// Sp = S rounded up to 64: per query row the log-sum-exp of its scores in
+// the log2 domain with the scale folded in (log2(sum 2^(s * log2(e) /
+// sqrt(hd)))), 0 for a row that sees no key and for the rows past S.
+// Returns cudaGetLastError() after launch.
+extern "C" int flash_prefill_fwd_lse(
+    int dtype, int hd, const void* q, const void* k, const void* v, void* o,
+    int B, int S, int T, int H, int KV, long long sqb, long long sqs,
+    long long sqh, long long skb, long long sks, long long skh, long long svb,
+    long long svs, long long svh, int causal, int window, int q_offset,
+    void* lse, void* stream) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.B = B; p.S = S; p.T = T; p.H = H; p.KV = KV;
+  p.Sp = (S + 63) / 64 * 64;
+  p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
+  p.skb = skb; p.sks = sks; p.skh = skh;
+  p.svb = svb; p.svs = svs; p.svh = svh;
+  p.causal = causal; p.window = window; p.q_offset = q_offset;
+  p.scale_log2 = kLog2e / sqrtf((float)hd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaErrorInvalidValue;
+  if (dtype == 0) err = dispatch_f32(hd, p, s);
+  if (dtype == 1)
+    err = lse ? dispatch_bf16<true>(hd, p, s) : dispatch_bf16<false>(hd, p, s);
+  const int past = T + window - 1 - q_offset;   // rows from here see no key
+  const int first = window <= 0 ? S : past > 0 ? past : 0;
+  if (err || first >= S) return err;
+  const dim3 grid(S - first, H, B);
+  if (dtype == 0) keyless_rows<float><<<grid, hd, 0, s>>>(p, first, hd);
+  else keyless_rows<bf16><<<grid, hd, 0, s>>>(p, first, hd);
+  return (int)cudaGetLastError();
+}
+
+// flash_prefill_fwd_lse without the log-sum-exp: what serving calls.
 extern "C" int flash_prefill_fwd(int dtype, int hd, const void* q,
                                  const void* k, const void* v, void* o, int B,
                                  int S, int T, int H, int KV, long long sqb,
@@ -925,16 +744,7 @@ extern "C" int flash_prefill_fwd(int dtype, int hd, const void* q,
                                  long long sks, long long skh, long long svb,
                                  long long svs, long long svh, int causal,
                                  int window, int q_offset, void* stream) {
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.B = B; p.S = S; p.T = T; p.H = H; p.KV = KV;
-  p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
-  p.skb = skb; p.sks = sks; p.skh = skh;
-  p.svb = svb; p.svs = svs; p.svh = svh;
-  p.causal = causal; p.window = window; p.q_offset = q_offset;
-  p.scale_log2 = kLog2e / sqrtf((float)hd);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(hd, p, s);
-  if (dtype == 1) return dispatch_bf16(hd, p, s);
-  return (int)cudaErrorInvalidValue;
+  return flash_prefill_fwd_lse(dtype, hd, q, k, v, o, B, S, T, H, KV, sqb,
+                               sqs, sqh, skb, sks, skh, svb, svs, svh, causal,
+                               window, q_offset, nullptr, stream);
 }

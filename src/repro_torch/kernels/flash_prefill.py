@@ -14,18 +14,21 @@ differentiates it there); for a CUDA tensor they launch a kernel or
 raise. ``flash_attention`` goes through the ``FlashAttention`` autograd
 Function (forward kernel, then the backward kernel) only when grad is
 enabled and an input requires it; otherwise it launches the forward
-kernel alone, as serving does. ``flash_attention.launches`` counts the
-forward kernel's launches, ``flash_attention.backward_launches`` the
-backward's.
+kernel alone, as serving does. Under grad the forward also keeps each
+query row's log-sum-exp (``flash_attention_with_lse``), which the
+backward kernel reads instead of recomputing it. ``flash_attention.
+launches`` counts the forward kernel's launches,
+``flash_attention.backward_launches`` the backward's.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
+from .ref import flash_attention_lse_ref as plain_lse
 from .ref import flash_attention_ref as plain
 
 HEAD_DIMS = (32, 64, 80, 128)
@@ -35,6 +38,7 @@ _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _i,
              _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
              _i, _i, _i, _p]
+_LSE_ARGTYPES = [*_ARGTYPES[:-1], _p, _p]
 _BWD_ARGTYPES = [_i, _i, *[_p] * 10, _i, _i, _i, _i, _i, _i, _i, _i, _p]
 
 
@@ -97,36 +101,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, window, q_offset)
 
 
-def _forward(q, k, v, causal: bool, window: int,
-             q_offset: int) -> torch.Tensor:
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, q_offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention``'s output and each query row's log-sum-exp of
+    its visible scores in the log2 domain, [B, H, S] f32 (0 for a row
+    that sees no key): what the backward kernel reads. On CUDA tensors
+    one launch of the forward kernel (counted in
+    ``flash_attention.launches``), outside autograd."""
+    if q.device.type == "cpu":
+        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return plain(q, k, v, **mask), plain_lse(q, k, **mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return _forward(q, k, v, causal, window, q_offset, with_lse=True)
+
+
+def _padded_rows(S: int) -> int:
+    """The kernels' lse and D hold S rounded up to 64 rows a head."""
+    return -(-S // 64) * 64
+
+
+def _forward(q, k, v, causal: bool, window: int, q_offset: int,
+             with_lse: bool = False):
     _check(q, k, v)
     if window < 0 or q_offset < 0:
         raise ValueError("flash_attention: window and q_offset must be >= 0")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, _padded_rows(S)), dtype=torch.float32,
+                      device=q.device)[..., :S] if with_lse else None
     if out.numel() == 0:
-        return out
-    launch = _build.launcher("flash_prefill", "flash_prefill_fwd", _ARGTYPES)
+        return (out, lse) if with_lse else out
+    args = (_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, S, T, H, KV, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
+            int(q_offset))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch(_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), B, S, T, H, KV,
-               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               int(causal), int(window), int(q_offset), stream)
+        if with_lse:
+            _build.launcher("flash_prefill", "flash_prefill_fwd_lse",
+                            _LSE_ARGTYPES)(*args, lse.data_ptr(), stream)
+        else:
+            _build.launcher("flash_prefill", "flash_prefill_fwd",
+                            _ARGTYPES)(*args, stream)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def backward_route(dtype: torch.dtype) -> str:
+    """Which kernels ``flash_attention_backward`` runs for ``dtype``."""
+    return {torch.bfloat16: "wgmma", torch.float32: "CUDA cores"}[dtype]
+
+
+def _kernel_lse(lse, B: int, H: int, S: int, device) -> torch.Tensor:
+    """``lse`` [B, H, S] f32 as the kernel reads it: [B, H, Sp] storage,
+    rows past S unused; copied only when it is not laid out so."""
+    if lse is None:
+        raise ValueError("flash_attention backward: on CUDA tensors it "
+                         "needs the forward's lse (flash_attention_with_lse)")
+    Sp = _padded_rows(S)
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
+            lse.device != device:
+        raise ValueError(f"flash_attention backward: lse must be float32 "
+                         f"[{B}, {H}, {S}] on {device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    if lse.stride() != (H * Sp, Sp, 1) or lse.data_ptr() % 16:
+        padded = torch.zeros((B, H, Sp), dtype=torch.float32, device=device)
+        padded[..., :S] = lse
+        lse = padded
+    return lse
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool = True,
-                             window: int = 0, q_offset: int = 0
+                             dout: torch.Tensor, *,
+                             lse: Optional[torch.Tensor] = None,
+                             causal: bool = True, window: int = 0,
+                             q_offset: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output is
-    ``out``, for the output gradient ``dout``, in q's dtype. On CPU
-    tensors: autograd of the plain version (``out`` unused)."""
+    ``out`` and log-sum-exp ``lse`` (both from
+    ``flash_attention_with_lse``), for the output gradient ``dout``, in
+    q's dtype. On CPU tensors: autograd of the plain version (``out`` and
+    ``lse`` unused)."""
     if q.device.type == "cpu":
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -149,8 +210,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if S == 0 or T == 0 or B * H == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    lse = _kernel_lse(lse, B, H, S, q.device)
+    delta = torch.empty((B, H, _padded_rows(S)), dtype=torch.float32,
+                        device=q.device)
     launch = _build.launcher("flash_backward", "flash_attention_bwd",
                              _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -167,17 +229,18 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
-        out = _forward(q, k, v, causal, window, q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, window, q_offset,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, dout, causal=causal, window=window,
+            q, k, v, out, dout, lse=lse, causal=causal, window=window,
             q_offset=q_offset)
         return dq, dk, dv, None, None, None
 

@@ -23,9 +23,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the key sequence (used for chunked prefill).
     """
     B, S, H, hd = q.shape
+    logits, mask = _flash_logits(q, k, causal, window, q_offset)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _flash_logits(q, k, causal: bool, window: int, q_offset: int):
+    """(scaled logits [B, KV, G, S, T] in f32, visibility mask [S, T])."""
+    B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, S, KV, G, hd).float()
+    qg = q.reshape(B, S, KV, H // KV, hd).float()
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(hd)
     qpos = torch.arange(S, device=q.device) + q_offset
     kpos = torch.arange(T, device=q.device)
@@ -34,10 +43,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = kpos[None, :] <= qpos[:, None]
     if window > 0:
         mask = mask & (kpos[None, :] > qpos[:, None] - window)
-    logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return logits, mask
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0) -> torch.Tensor:
+    """The log-sum-exp of each query row's visible scores in the log2
+    domain, log2(sum_t 2^(q.k_t log2(e) / sqrt(hd))), as the flash forward
+    kernel keeps it for the backward: [B, H, S] f32, 0 for a row that sees
+    no key. (No counterpart in the reference, whose forward keeps none.)"""
+    B, S, H, _ = q.shape
+    logits, mask = _flash_logits(q, k, causal, window, q_offset)
+    lse = torch.logsumexp(logits.masked_fill(~mask, -math.inf), dim=-1)
+    lse = torch.where(mask.any(-1), lse * math.log2(math.e), 0.0)
+    return lse.reshape(B, H, S)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

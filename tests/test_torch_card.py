@@ -55,6 +55,34 @@ def test_flash_kernel_matches_plain(card, dtype, S, T, H, KV, hd, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,H,KV,hd,causal,window,q_offset", [
+    (100, 120, 4, 2, 32, True, 30, 80),       # rows 69.. see no key
+    (90, 64, 2, 1, 32, False, 20, 60),        # non-causal, rows 23..
+    (300, 260, 8, 2, 128, True, 64, 100),     # hd 128, two blocks of rows
+    (200, 150, 4, 4, 80, False, 16, 40),      # hd 80
+])
+def test_flash_kernel_keyless_rows_match_plain(card, dtype, S, T, H, KV, hd,
+                                               causal, window, q_offset):
+    """Rows that see no key get the plain version's uniform softmax (the
+    mean of V), and the forward's log-sum-exp matches the plain one (0 on
+    those rows)."""
+    q = torch.randn(2, S, H, hd, generator=card, device="cuda").to(dtype)
+    k = torch.randn(2, T, KV, hd, generator=card, device="cuda").to(dtype)
+    v = torch.randn(2, T, KV, hd, generator=card, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert q_offset + S - 1 >= T + window - 1      # some row sees no key
+    out = flash_prefill.flash_attention(q, k, v, **kw)
+    out2, lse = flash_prefill.flash_attention_with_lse(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw).float()
+    for got in (out, out2):
+        torch.testing.assert_close(got.float(), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+    torch.testing.assert_close(
+        lse, ref.flash_attention_lse_ref(q, k, **kw), atol=TOL[dtype],
+        rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KV,hd,page", [(8, 2, 64, 16), (7, 1, 128, 8),
                                           (4, 4, 32, 16),
                                           (16, 16, 128, 16)])  # deepseek-moe
@@ -425,6 +453,12 @@ def test_new_families_match_cpu(card, arch):
     (64, 256, 4, 2, 128, True, 0, 192),       # q_offset, one query tile
     (100, 120, 4, 2, 32, True, 30, 80),       # rows 69.. see no key
     (1, 100, 16, 16, 64, False, 0, 0),        # one query row
+    (512, 512, 8, 2, 128, True, 0, 0),        # hd 128: 4 x 8 key tiles
+    (1000, 1000, 6, 3, 128, True, 200, 0),    # hd 128, ragged, a window
+    (512, 768, 8, 8, 64, False, 0, 0),        # hd 64, non-causal, S != T
+    (640, 640, 4, 2, 64, True, 0, 0),         # hd 64, causal
+    (520, 520, 4, 4, 80, True, 0, 0),         # hd 80
+    (600, 700, 4, 2, 32, True, 100, 200),     # hd 32, keyless rows
 ])
 def test_flash_backward_kernel_matches_plain(card, dtype, S, T, H, KV, hd,
                                              causal, window, q_offset):
@@ -458,12 +492,14 @@ def test_flash_backward_is_deterministic(card):
         torch.bfloat16)
     k, v = (torch.randn(2, 256, 2, 128, generator=card, device="cuda").to(
         torch.bfloat16) for _ in range(2))
-    out = flash_prefill.flash_attention(q, k, v)
+    out, lse = flash_prefill.flash_attention_with_lse(q, k, v)
     dout = torch.randn_like(out)
-    a = flash_prefill.flash_attention_backward(q, k, v, out, dout)
-    b = flash_prefill.flash_attention_backward(q, k, v, out, dout)
+    a = flash_prefill.flash_attention_backward(q, k, v, out, dout, lse=lse)
+    b = flash_prefill.flash_attention_backward(q, k, v, out, dout, lse=lse)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="lse"):
+        flash_prefill.flash_attention_backward(q, k, v, out, dout)
 
 
 def test_kernels_without_backward_raise_under_grad(card):
