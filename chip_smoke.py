@@ -93,7 +93,19 @@ Phases, each fatal on failure (the script exits non-zero):
      params and moments must equal the first run's bit for bit (with the
      checkpoint directory's filesystem and the save and load times);
      (7d) one f32 train step at full width and 4 layers, kernels against
-     kernel-free (plain attention, autograd), TF32 off.
+     kernel-free (plain attention, autograd), TF32 off;
+  8. perf flags (``repro_torch.dist.opt_flags``) on one llama32-3b build
+     at full width and depth in bf16: (8a) ``pad_heads``, a 1 x 1024
+     prefill whose logits and cache must equal the flag-off run's bit for
+     bit, with flash launched 28 times at the regrouped heads (H 32 over
+     16 kv heads; the shapes logged); (8b) ``masked_cache_update``,
+     ``Model.decode_step`` on the dense cache at B = 4 after a 1024-token
+     prefill, logits and cache bit for bit the flag-off run's; (8c) 7b's
+     training run under ``remat_dots``, ``bf16_logits`` and both, each
+     logged as 7b is (losses, step walls, tokens/s, share of the peak,
+     peak memory, launches: flash 56 and backward 28 a step, one profiled
+     step) and held to 7b's losses (``remat_dots``: each within 1e-5
+     relative; ``bf16_logits``: step 1 within 1e-2).
 
 It prints the kernels' JSON line and the card's name and power limit
 before its last line, which is
@@ -101,12 +113,14 @@ before its last line, which is
 
   python3 chip_smoke.py            # from the repository root
 
-Three diagnostics, which print their JSON line and the card instead:
+Four diagnostics, which print their JSON line and the card instead:
 ``--windows DIR`` times phase 3's prefill and decode step, store and
 fetch per medium (and the flash wrapper's host time, and the paged
 kernel at five shapes) of the
 checkout at DIR, so that two checkouts are compared in one call with one
-yardstick; ``--flash-ablation`` and ``--rwkv6-ablation`` time the bf16
+yardstick; ``--train DIR`` runs phase 7b's training of the checkout at
+DIR (its losses, step walls and launches); ``--flash-ablation`` and
+``--rwkv6-ablation`` time the bf16
 flash kernel or the chunked rwkv6 kernel built with one part switched
 off at a time.
 """
@@ -1588,68 +1602,107 @@ def train_counts(torch, reset: bool = False) -> dict:
     return got
 
 
-def train_full(torch) -> dict:
-    """7b: llama32-3b at full width and depth, bf16, TRAIN_STEPS steps
-    through ``repro_torch.launch.train.train``; returns its launch
-    counts."""
+def train_run(torch, label: str, flags: str = "") -> dict:
+    """llama32-3b at full width and depth, bf16, TRAIN_STEPS steps of
+    TRAIN_B x TRAIN_S through ``repro_torch.launch.train.train`` (seed 0:
+    every run starts from the same weights and batches) with the perf
+    ``flags`` set (none: the registry is not touched, so the parent's
+    checkout runs it too) and the launch counts set to 0 just before and
+    read just after. Logs and returns its losses, step walls, launches
+    and peak memory; fails unless every loss is finite and the launches
+    are flash forward 2 x L a step (forward and the checkpoint's
+    recompute) and backward L, no other kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.train import train
     from repro_torch.models import get_model
-    from repro_torch.serve.steps import build_train_step
-    from repro_torch.train.data import SyntheticLM
-    from repro_torch.train.optimizer import adamw
     cfg = get_config(TRAIN_ARCH)
     L, n_params = cfg.num_layers, get_model(cfg).param_count()
     tokens = TRAIN_B * TRAIN_S
+    if flags:
+        from repro_torch.dist import opt_flags
+        opt_flags.set_flags(flags)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train_counts(torch, reset=True)
     t0 = time.perf_counter()
-    losses, wd = train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
-                       batch_size=TRAIN_B, seq_len=TRAIN_S, device="cuda",
-                       log_every=1)
+    try:
+        losses, wd = train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+                           batch_size=TRAIN_B, seq_len=TRAIN_S,
+                           device="cuda", log_every=1, verbose=False)
+    finally:
+        if flags:
+            opt_flags.set_flags("")
     wall = time.perf_counter() - t0
     counted = train_counts(torch)
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": 2 * L * TRAIN_STEPS,
             "flash_attention_backward": L * TRAIN_STEPS,
             "paged_attention": 0, "rwkv6_scan": 0, "mamba2_ssd": 0}
-    log(f"7b {TRAIN_ARCH} train, {L} layers, {n_params / 1e9:.3f} B params, "
-        f"bf16, batch {TRAIN_B} x {TRAIN_S}: losses {losses}; launches "
-        f"{counted} (want {want}: forward and the checkpoint's recompute, "
-        f"one backward, per layer and step)")
+    log(f"{label} {TRAIN_ARCH} train, {L} layers, {n_params / 1e9:.3f} B "
+        f"params, bf16, batch {TRAIN_B} x {TRAIN_S}, flags "
+        f"[{flags}]: losses {losses}; launches {counted} (want {want}: "
+        f"forward and the checkpoint's recompute, one backward, per layer "
+        f"and step)")
     require(len(losses) == TRAIN_STEPS and all(
-        math.isfinite(x) for x in losses), f"7b losses {losses}")
-    require(counted == want, f"7b launches {counted}, want {want}")
+        math.isfinite(x) for x in losses), f"{label} losses {losses}")
+    require(counted == want, f"{label} launches {counted}, want {want}")
     steps = list(wd.durations)
     step_s = statistics.median(steps[1:])
-    log(f"7b step walls (s): {[round(x, 4) for x in steps]} (the first "
-        f"warms cuBLAS and builds nothing: the kernels are built); median "
-        f"of the rest {step_s:.4f} s, {tokens / step_s:.0f} tokens/s, "
-        f"{6 * n_params * tokens / step_s / 1e12:.1f} TFLOP/s at "
+    log(f"{label} step walls (s): {[round(x, 4) for x in steps]} (the "
+        f"first warms cuBLAS and builds nothing: the kernels are built); "
+        f"median of the rest {step_s:.4f} s, {tokens / step_s:.0f} "
+        f"tokens/s, {6 * n_params * tokens / step_s / 1e12:.1f} TFLOP/s at "
         f"6 * params * tokens = {6 * n_params * tokens / step_s / PEAK_FLOPS['bfloat16']:.1%} "
         f"of the bf16 peak; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); whole call "
         f"{wall:.1f} s with init")
-    # one more step under the profiler, from fresh weights: busy time
+    return dict(losses=losses, walls=steps, step_s=step_s, counted=counted,
+                peak=peak)
+
+
+def profile_train_step(torch, label: str, flags: str = "") -> None:
+    """One more step under the profiler, from fresh weights, with the
+    perf ``flags`` set: the card's busy time and its largest
+    operations."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.dist import opt_flags
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serve.steps import build_train_step
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw
     gc.collect()
     torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
     model = get_model(cfg)
     opt = adamw(1e-3)
-    bundle = build_train_step(cfg, "cuda", InputShape(
+    bundle = build_train_step(cfg, make_host_mesh(), InputShape(
         "train", TRAIN_S, TRAIN_B, "train"), optimizer=opt)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
     state = opt.init(params)
     batch = SyntheticLM(cfg, TRAIN_B, TRAIN_S).next_batch()
-    prof = kernel_time(torch, lambda: bundle.fn(params, state, batch))
-    log(f"7b one train step, profiled: {prof.get('ops')} device ops, busy "
-        f"{prof.get('busy_ms')} ms, span {prof.get('span_ms')} ms; largest "
-        f"{prof.get('top')}")
+    opt_flags.set_flags(flags)
+    try:
+        prof = kernel_time(torch, lambda: bundle.fn(params, state, batch))
+    finally:
+        opt_flags.set_flags("")
+    log(f"{label} one train step, flags [{flags}], profiled: "
+        f"{prof.get('ops')} device ops, busy {prof.get('busy_ms')} ms, span "
+        f"{prof.get('span_ms')} ms; largest {prof.get('top')}")
     del params, state, bundle, model
     gc.collect()
     torch.cuda.empty_cache()
-    return counted
+
+
+def train_full(torch) -> dict:
+    """7b: ``train_run`` with no flag and one profiled step; returns the
+    run (its losses and launch counts)."""
+    run = train_run(torch, "7b")
+    profile_train_step(torch, "7b")
+    return run
 
 
 def restart_bit_exact(torch) -> None:
@@ -1793,12 +1846,164 @@ def train_parity(torch) -> None:
 
 
 def phase_training(torch):
-    """Phase 7: 7a to 7d; returns (7a's JSON row, 7b's launch counts)."""
+    """Phase 7: 7a to 7d; returns (7a's JSON row, 7b's run)."""
     row = flash_backward_kernel(torch)
-    counted = train_full(torch)
+    run = train_full(torch)
     restart_bit_exact(torch)
     train_parity(torch)
-    return row, counted
+    return row, run
+
+
+# ----------------------------------------------------------------------
+# phase 8: the perf flags
+# ----------------------------------------------------------------------
+FLAG_RUNS = ("remat_dots", "bf16_logits", "remat_dots,bf16_logits")
+FLAGS_B = 4                      # 8b's decode batch
+
+
+def logged_flash_shapes(fn):
+    """Calls ``fn`` and returns the (q, k) shapes that the flash forward
+    kernel was launched at (its input check runs once a launch)."""
+    from repro_torch.kernels import flash_prefill
+    shapes, check = [], flash_prefill._check
+
+    def logged(q, k, v):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return check(q, k, v)
+    flash_prefill._check = logged
+    try:
+        out = fn()
+    finally:
+        flash_prefill._check = check
+    return out, shapes
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def flags_serving(torch) -> dict:
+    """8a and 8b on one llama32-3b build at full width and depth (bf16,
+    seeded weights): a 1 x PROMPT prefill with ``pad_heads`` off and on
+    (logits and cache bit for bit, flash launched L times at the
+    regrouped heads), and ``Model.decode_step`` on the dense cache at
+    B = FLAGS_B after a prefill, ``masked_cache_update`` off and on
+    (logits and cache bit for bit). Returns the launch counts of the
+    flagged runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import opt_flags
+    from repro_torch.models import get_model
+    cfg = get_config(TRAIN_ARCH)
+    L, H, KV = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (FLAGS_B, PROMPT + 1),
+                         generator=g, device="cuda")
+    counted = {k: 0 for k in launch_counters()}
+
+    def prefill(n):
+        return model.prefill(params, {"tokens": toks[:n, :PROMPT]},
+                             s_max=PROMPT + 1)
+
+    with torch.no_grad():
+        base = prefill(1)
+        opt_flags.set_flags("pad_heads")
+        try:
+            for fn in launch_counters().values():
+                fn.launches = 0
+            tuned, shapes = logged_flash_shapes(lambda: prefill(1))
+            got = {k: fn.launches for k, fn in launch_counters().items()}
+        finally:
+            opt_flags.set_flags("")
+        torch.cuda.synchronize()
+        same = [same_bits(torch, a, b) for a, b in
+                zip((base[0], *base[1]), (tuned[0], *tuned[1]))]
+        log(f"8a pad_heads: {TRAIN_ARCH} prefill 1 x {PROMPT} (H {H}, KV "
+            f"{KV}): flash launched at (q, k) shapes {sorted(set(shapes))}, "
+            f"{got['flash_attention']} launches (want {L}); logits, cache "
+            f"k, cache v bit for bit equal to the flag off: {same}")
+        require(all(same), "8a pad_heads prefill differs from the flag off")
+        require(got["flash_attention"] == L and len(shapes) == L,
+                f"8a flash launches {got}")
+        want_q = (1, PROMPT, 32, cfg.head_dim)
+        require(all(q == want_q and k[2] == 16 for q, k in shapes),
+                f"8a flash ran at {sorted(set(shapes))}, want q {want_q} "
+                f"over 16 kv heads")
+        for k, n in got.items():
+            counted[k] += n
+        del base, tuned
+
+        for fn in launch_counters().values():
+            fn.launches = 0
+        logits0, cache = prefill(FLAGS_B)
+        counted["flash_attention"] += launch_counters()[
+            "flash_attention"].launches
+        nxt = toks[:, PROMPT]
+        pos = torch.full((FLAGS_B,), PROMPT, dtype=torch.int32,
+                         device="cuda")
+        out = {}
+        for flags in ("", "masked_cache_update"):
+            opt_flags.set_flags(flags)
+            try:
+                out[flags] = model.decode_step(params, nxt, cache, pos)
+            finally:
+                opt_flags.set_flags("")
+        torch.cuda.synchronize()
+        (a, ca), (b, cb) = out[""], out["masked_cache_update"]
+        same = [same_bits(torch, x, y) for x, y in
+                zip((a, *ca), (b, *cb))]
+        log(f"8b masked_cache_update: {TRAIN_ARCH} decode_step on the dense "
+            f"cache (B {FLAGS_B}, {PROMPT}-token prefill, cache "
+            f"{tuple(ca.k.shape)}): logits, cache k, cache v bit for bit "
+            f"equal to the flag off: {same}; logits finite "
+            f"{bool(torch.isfinite(a).all())}")
+        require(all(same), "8b masked_cache_update decode differs")
+        require(bool(torch.isfinite(a).all()), "8b logits not finite")
+    del params, model, cache, out, logits0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+def flags_training(torch, base: dict) -> dict:
+    """8c: ``train_run`` under each of FLAG_RUNS, with one profiled step
+    each, against 7b's run ``base``: under ``remat_dots`` each loss
+    within 1e-5 relative of 7b's; under ``bf16_logits`` step 1's loss
+    within 1e-2 of 7b's. Returns the summed launch counts."""
+    counted = {}
+    for flags in FLAG_RUNS:
+        run = train_run(torch, "8c", flags)
+        profile_train_step(torch, "8c", flags)
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   base["losses"])]
+        log(f"8c [{flags}] against 7b: losses relative diff {rel}, bit for "
+            f"bit equal {run['losses'] == base['losses']}; step "
+            f"{run['step_s'] * 1e3:.1f} ms against {base['step_s'] * 1e3:.1f}"
+            f" ms ({run['step_s'] / base['step_s'] - 1:+.1%}); peak "
+            f"{run['peak'] / 1e9:.2f} GB against {base['peak'] / 1e9:.2f} GB "
+            f"({(run['peak'] - base['peak']) / 1e9:+.2f} GB)")
+        if "bf16_logits" in flags:
+            require(abs(run["losses"][0] - base["losses"][0]) <= 1e-2,
+                    f"8c [{flags}] step 1 loss {run['losses'][0]} against "
+                    f"7b's {base['losses'][0]}")
+        else:
+            require(max(rel) <= 1e-5, f"8c [{flags}] losses {rel} off 7b")
+        for k, n in run["counted"].items():
+            counted[k] = counted.get(k, 0) + n
+    return counted
+
+
+def phase_flags(torch, base: dict) -> dict:
+    """Phase 8: 8a to 8c; returns the launch counts of its main-path
+    runs."""
+    counted = flags_serving(torch)
+    counted["flash_attention_backward"] = 0
+    for k, n in flags_training(torch, base).items():
+        counted[k] += n
+    return counted
 
 
 # ----------------------------------------------------------------------
@@ -1849,6 +2054,15 @@ def windows_only(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def train_only(torch) -> dict:
+    """``--train DIR``: phase 7b's training run (no flag, no profile) of
+    the checkout whose ``src`` is on the path: its losses, step walls,
+    launches and peak memory. Run on two checkouts in one call, it shows
+    whether a change moved the train step's numbers."""
+    run = train_run(torch, "7b")
+    return dict(run, walls=[round(x, 4) for x in run["walls"]])
 
 
 def transfer_times(torch, payload) -> dict:
@@ -2018,6 +2232,9 @@ def main() -> int:
     ap.add_argument("--windows", metavar="DIR", type=Path,
                     help="only time phase 3's prefill and decode step, of "
                          "the checkout at DIR")
+    ap.add_argument("--train", metavar="DIR", type=Path,
+                    help="only run phase 7b's training (losses, step "
+                         "walls, launches), of the checkout at DIR")
     ap.add_argument("--flash-ablation", action="store_true",
                     help="only time the flash kernel with parts switched off")
     ap.add_argument("--rwkv6-ablation", action="store_true",
@@ -2028,7 +2245,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device")
         return 1
-    src = SRC if args.windows is None else args.windows.resolve() / "src"
+    tree = args.windows or args.train
+    src = SRC if tree is None else tree.resolve() / "src"
     if not (src / "repro_torch").is_dir():
         log(f"FAIL: no src/repro_torch in {src.parent}")
         return 1
@@ -2050,6 +2268,7 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     diagnostic = (windows_only if args.windows is not None else
+                  train_only if args.train is not None else
                   flash_ablation if args.flash_ablation else
                   rwkv6_ablation if args.rwkv6_ablation else None)
     if diagnostic is not None:
@@ -2085,9 +2304,13 @@ def main() -> int:
     t0 = time.perf_counter()
     rows["flash_attention_backward"], trained = phase_training(torch)
     counted["flash_attention_backward"] = 0
-    for k, n in trained.items():
+    for k, n in trained["counted"].items():
         counted[k] += n
     log(f"phase 7 (training): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, n in phase_flags(torch, trained).items():
+        counted[k] += n
+    log(f"phase 8 (perf flags): {time.perf_counter() - t0:.1f} s")
 
     info = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_prefill.cu",

@@ -11,8 +11,12 @@ backward carry attention), ``--smoke`` (the default) the reduced one.
       --smoke --device cpu --steps 12 --ckpt-dir /tmp/ck --ckpt-every 5
 
 Re-run with more ``--steps`` and the same ``--ckpt-dir`` to restore the
-latest checkpoint and go on from it. The rwkv6 and SSD scan kernels have
-no backward yet: the ssm and hybrid families train on the CPU only.
+latest checkpoint and go on from it. The step is built on
+``make_host_mesh`` of ``--device``: one device, (1, 1), in a process with
+no process group. Perf flags come from ``REPRO_OPT`` (e.g.
+``REPRO_OPT=remat_dots,bf16_logits``; ``dist/opt_flags.py``). The rwkv6
+and SSD scan kernels have no backward yet: the ssm and hybrid families
+train on the CPU only.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.dist import fault
 from repro_torch.dist.fault import SimulatedFailure, StragglerWatchdog
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serve.steps import build_train_step
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.optimizer import adamw, cosine_schedule
@@ -52,7 +57,8 @@ def train(arch: Union[str, ModelConfig], *, smoke: bool = True,
     shape = InputShape("cli", seq_len, batch_size, "train")
     opt = adamw(cosine_schedule(1e-3, warmup_steps=max(steps // 10, 1),
                                 total_steps=steps))
-    bundle = build_train_step(cfg, device, shape, optimizer=opt)
+    mesh = make_host_mesh(device_type=device.type)
+    bundle = build_train_step(cfg, mesh, shape, optimizer=opt)
     model = bundle.model
 
     data = SyntheticLM(cfg, batch_size, seq_len, seed=seed)
@@ -63,7 +69,7 @@ def train(arch: Union[str, ModelConfig], *, smoke: bool = True,
         if latest:
             payload = fault.load_checkpoint(latest)
             params, opt_state, start_step, cursor = fault.restore_sharded(
-                payload, bundle.shardings[0], bundle.shardings[1])
+                payload, device, device)
             del payload
             data.restore(cursor)
             if verbose:

@@ -8,32 +8,63 @@ Conventions, as in ``repro.models.layers``:
   * attention math routes through ``repro_torch.kernels.ops``, so the CUDA
     kernels and their plain versions share one call site.
 
-Only the default branches are ported: the ``opt_flags`` switches
-(``pad_heads``, ``head_shard_attn``, ``masked_cache_update``,
-``bf16_logits``, ``remat_dots``) come with ``dist/``.
+The perf flags of ``repro_torch.dist.opt_flags`` branch here as in the
+reference: ``remat_dots`` (``remat_wrap``), ``pad_heads`` and
+``head_shard_attn`` (``flash_gqa``), ``masked_cache_update``
+(``cache_write``) and ``bf16_logits`` (``lm_logits``). With no flag set
+each function runs its default branch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import opt_flags
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
 
+# products with no batch dimension: the ``x @ W`` projections (a 3-D
+# activation times a weight folds to ``mm``), the MoE router and the
+# shared experts. ``bmm`` has a batch dimension (attention's scores, the
+# MoE experts, the scans' einsums) and is recomputed, as JAX recomputes
+# batched dots.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_dots``: JAX's
+    ``dots_with_no_batch_dims_saveable``. The flash kernel runs inside an
+    autograd Function whose launch is no aten op, so its output is
+    recomputed, as JAX recomputes a Pallas call (which is no dot): the
+    policy caches no buffer that the kernel writes into."""
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_wrap(body):
     """Activation-checkpoint a layer body (the reference's
     ``jax.checkpoint``): its activations are dropped after the forward
-    pass and recomputed in the backward pass. The reference's
-    ``remat_dots`` policy comes with ``dist/opt_flags``."""
+    pass and recomputed in the backward pass. With the ``remat_dots``
+    perf flag (read when the body is wrapped, as the reference reads it
+    when tracing), the outputs of products with no batch dimension are
+    saved instead of recomputed (``_dots_saveable``)."""
+    policy = {}
+    if opt_flags.enabled("remat_dots"):
+        policy["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+
     def wrapped(*args):
-        return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args, use_reentrant=False, **policy)
     return wrapped
 
 
@@ -43,19 +74,66 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Full-sequence GQA attention. q [B,S,H,hd]; k,v [B,T,KV,hd]."""
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+              causal: bool = True, window: int = 0,
+              tp: int = 16) -> torch.Tensor:
+    """Full-sequence GQA attention with optional exact head regrouping.
+    q [B,S,H,hd]; k,v [B,T,KV,hd].
+
+    With the ``pad_heads`` perf flag and H % tp != 0 (yi-34b: 56, qwen2:
+    14, llama32-3b: 24), queries are regrouped so that the head dim
+    divides the model axis: each kv head is duplicated tp/KV times in
+    place (kv-major, ``repeat_interleave``), and its G query heads are
+    spread over the duplicates, zero-padded to equal groups. Zero q rows
+    attend uniformly, and their outputs are sliced away: bit-exact.
+
+    ``head_shard_attn`` pins the head dims to the 'model' axis in the
+    reference, through a sharding constraint that it skips when no mesh
+    is in scope. The port's tensors here are local (a mesh of one
+    device), so that flag leaves them as they are.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    if (not opt_flags.enabled("pad_heads") or H % tp == 0
+            or tp % KV != 0 or KV >= tp):
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+    dup = tp // KV
+    Gp = -(-G // dup)                     # q heads per duplicated kv head
+    pad = dup * Gp - G
+    qg = F.pad(q.reshape(B, S, KV, G, hd), (0, 0, 0, pad))
+    # [B,S,KV,dup,Gp,hd] -> heads (KV*dup) * Gp, kv-major like GQA expects
+    qg = qg.reshape(B, S, KV * dup * Gp, hd)
+    kd = k.repeat_interleave(dup, dim=2)
+    vd = v.repeat_interleave(dup, dim=2)
+    out = ops.flash_attention(qg, kd, vd, causal=causal, window=window)
+    # the slice is strided: reshape copies it into a contiguous [B,S,H,hd]
+    out = out.reshape(B, S, KV, dup * Gp, hd)[:, :, :, :G]
+    return out.reshape(B, S, H, hd)
+
+
+def scatter_write(cache: torch.Tensor, new: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Write one token's K or V ([B, 1, KV, hd]) into a copy of a
+    [B, S, KV, hd] cache at per-batch position ``pos``, by a scatter."""
+    out = cache.clone()
+    out[torch.arange(cache.shape[0], device=cache.device), pos.long()] = \
+        new[:, 0].to(cache.dtype)
+    return out
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor,
                 pos: torch.Tensor) -> torch.Tensor:
     """Write one token's K or V ([B, 1, KV, hd]) into a copy of a
-    [B, S, KV, hd] cache at per-batch position ``pos``."""
-    out = cache.clone()
-    out[torch.arange(cache.shape[0], device=cache.device), pos.long()] = \
-        new[:, 0].to(cache.dtype)
-    return out
+    [B, S, KV, hd] cache at per-batch position ``pos``: a scatter, or
+    with ``masked_cache_update`` an elementwise select over the sequence
+    dim (the same values, bit for bit)."""
+    if opt_flags.enabled("masked_cache_update"):
+        idx = torch.arange(cache.shape[1], device=cache.device)
+        sel = idx[None, :, None, None] == pos.to(cache.device)[
+            :, None, None, None]
+        return torch.where(sel, new.to(cache.dtype), cache)
+    return scatter_write(cache, new, pos)
 
 
 # ----------------------------------------------------------------------
@@ -179,6 +257,11 @@ def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def lm_logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    if opt_flags.enabled("bf16_logits"):
+        # the head product and the logits in the operands' dtype (bf16
+        # under bf16 params and compute); the loss still upcasts
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x.float() @ w.float()
 
 

@@ -209,9 +209,10 @@ def shared_attn_seq(p, x: torch.Tensor, positions: torch.Tensor,
 
 def _ring_write(cache: torch.Tensor, val: torch.Tensor, pos: torch.Tensor,
                 ring: bool) -> torch.Tensor:
-    """cache: [B, S_cache, KV, hd]; val: [B, 1, KV, hd]; pos: [B]."""
+    """cache: [B, S_cache, KV, hd]; val: [B, 1, KV, hd]; pos: [B]. A
+    scatter whatever ``masked_cache_update`` says, as in the reference."""
     slot = pos % cache.shape[1] if ring else pos
-    return L.cache_write(cache, val, slot)
+    return L.scatter_write(cache, val, slot)
 
 
 def shared_attn_step(p, x: torch.Tensor, cache_k, cache_v, pos, cfg,

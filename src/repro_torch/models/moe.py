@@ -27,9 +27,11 @@ break them); dropped slots land in one extra buffer row that is cut off;
 the combine un-permutes to [T, K, d] and sums over K by a reduction, not
 by ``index_add_``, whose atomics would add in a varying order.
 
-The reference's grouped dispatch (its ``local_moe_dispatch`` perf flag)
-comes with ``dist/opt_flags``; the port runs the flag-off path, one
-group, the reference's default.
+With the ``local_moe_dispatch`` perf flag the tokens are dispatched in
+groups, as in the reference: the first g of (16, 8, 4, 2) with T % g ==
+0 and T / g >= E, each group sorted and capacity-bounded on its own (C
+from T / g tokens), and the aux loss from the summed counts and the
+averaged router probabilities. Without it, one group.
 
 Decode on the serving path goes through the paged pool
 (``decode_step_paged``, the paged-attention kernel), as the dense
@@ -48,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import opt_flags
 from . import layers as L
 from . import transformer as TF
 
@@ -144,8 +147,23 @@ def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     capacity (see ``capacity``)."""
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    y, counts, frac_probs = _dispatch(p, xt, cfg, dropless)
-    aux = _aux_loss(counts, frac_probs, cfg, xt.shape[0])
+    T = xt.shape[0]
+    groups = 1
+    if opt_flags.enabled("local_moe_dispatch"):
+        groups = next((g for g in (16, 8, 4, 2)
+                       if T % g == 0 and T // g >= cfg.moe.num_experts), 1)
+    if groups > 1:
+        parts = [_dispatch(p, xg, cfg, dropless)
+                 for xg in xt.reshape(groups, T // groups, d)]
+        y = torch.cat([y for y, _, _ in parts])
+        # the aux loss from global routing stats: summed counts and
+        # averaged probs give the ungrouped loss (a mean of per-group
+        # losses would not: f_e * P_e is quadratic in the stats)
+        counts = torch.stack([c for _, c, _ in parts]).sum(0)
+        frac_probs = torch.stack([f for _, _, f in parts]).mean(0)
+    else:
+        y, counts, frac_probs = _dispatch(p, xt, cfg, dropless)
+    aux = _aux_loss(counts, frac_probs, cfg, T)
     if cfg.moe.num_shared_experts:
         s = p["shared"]
         y = y + (F.silu(xt @ s["w_gate"]) * (xt @ s["w_up"])) @ s["w_down"]

@@ -1,11 +1,17 @@
 """Step builders, the port of ``repro.serve.steps``.
 
-The reference jits each step with the production shardings of a mesh
-and lowers it for the dry run. The port runs eagerly on one device:
-each builder takes the ``device`` where the reference takes the mesh,
-``shardings`` holds that device once per argument, and the
+Each builder takes a mesh (``launch.mesh``: a ``DeviceMesh``, or the
+one-device ``AbstractMesh`` of a process with no process group) and
+computes the production shardings as the reference's builders do: params
+tensor-parallel, the optimizer moments TP plus ZeRO over the data axes,
+the batch and the decode state by their rules (``dist.sharding``). They
+come back in ``StepBundle.shardings`` as trees of DTensor placements, and
 ``abstract_args`` are meta tensors (shapes and dtypes, no memory).
-Sharding over several cards comes with ``dist/``.
+
+On a mesh of one device the step runs eagerly on that device, on local
+tensors. On a larger mesh the bundle serves placement and the dry run
+only: calling its ``fn`` raises ``NotImplementedError``, since running
+across devices needs the collectives (ROADMAP queue 1 item 3).
 
   train    loss, its gradient by autograd, and AdamW, all in place: the
            params and the optimizer state passed in are updated and
@@ -15,6 +21,8 @@ Sharding over several cards comes with ``dist/``.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,6 +30,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
+from repro_torch.dist.sharding import (batch_shardings, data_axes,
+                                       opt_state_shardings, param_shardings,
+                                       placements, replicated,
+                                       state_shardings)
 from repro_torch.models import get_model
 from repro_torch.train.optimizer import (AdamWState, Optimizer, adamw,
                                          cosine_schedule, tree_leaves)
@@ -31,8 +43,24 @@ class StepBundle(NamedTuple):
     """A step plus everything needed to call it."""
     fn: Any                      # the step
     abstract_args: Tuple         # meta tensors of its arguments
-    shardings: Tuple             # the device of each argument
+    shardings: Tuple             # placements trees, one per argument
     model: Any
+
+
+def _on_mesh(step, mesh):
+    """``step`` on the one device of ``mesh``; on a larger mesh, a
+    callable that raises."""
+    if mesh.size() == 1:
+        return step
+
+    @functools.wraps(step)
+    def unsupported(*args, **kwargs):
+        raise NotImplementedError(
+            f"{step.__name__} on a mesh of {mesh.size()} devices "
+            f"({dict(zip(mesh.mesh_dim_names, mesh.shape))}): running "
+            f"across devices needs dist/collectives (ROADMAP queue 1 item "
+            f"3); this bundle serves placement only")
+    return unsupported
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -43,15 +71,20 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 # ----------------------------------------------------------------------
-def build_train_step(cfg: ModelConfig, device, shape: InputShape, *,
+def build_train_step(cfg: ModelConfig, mesh, shape: InputShape, *,
                      remat: bool = True,
                      optimizer: Optional[Optimizer] = None) -> StepBundle:
     model = get_model(cfg)
     opt = optimizer or adamw(cosine_schedule(3e-4))
-    dev = torch.device(device)
+    dev = mesh.device_type
     abs_params = model.abstract_params()
     abs_opt = opt.init(abs_params)
+    p_sh = param_shardings(cfg, abs_params, mesh)
+    # optimizer moments: ZeRO-sharded over data on top of the TP layout
+    m_sh = opt_state_shardings(cfg, abs_params, mesh)
+    opt_sh = AdamWState(m=m_sh, v=m_sh, count=replicated(mesh))
     abs_batch = model.train_inputs(shape)
+    b_sh = batch_shardings(abs_batch, mesh)
 
     def train_step(params, opt_state: AdamWState, batch
                    ) -> Tuple[Any, AdamWState, torch.Tensor]:
@@ -70,54 +103,63 @@ def build_train_step(cfg: ModelConfig, device, shape: InputShape, *,
         opt_state = opt.update_(grads, opt_state, params)
         return params, opt_state, loss.detach()
 
-    return StepBundle(fn=train_step,
+    return StepBundle(fn=_on_mesh(train_step, mesh),
                       abstract_args=(abs_params, abs_opt, abs_batch),
-                      shardings=(dev, dev, dev), model=model)
+                      shardings=(p_sh, opt_sh, b_sh), model=model)
 
 
 # ----------------------------------------------------------------------
-def build_prefill_step(cfg: ModelConfig, device,
+def build_prefill_step(cfg: ModelConfig, mesh,
                        shape: InputShape) -> StepBundle:
     model = get_model(cfg)
-    dev = torch.device(device)
+    dev = mesh.device_type
+    abs_params = model.abstract_params()
+    p_sh = param_shardings(cfg, abs_params, mesh)
+    abs_batch = model.prefill_inputs(shape)
+    b_sh = batch_shardings(abs_batch, mesh)
     s_max = shape.seq_len
 
     @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, to_device(batch, dev), s_max=s_max)
 
-    return StepBundle(fn=prefill_step,
-                      abstract_args=(model.abstract_params(),
-                                     model.prefill_inputs(shape)),
-                      shardings=(dev, dev), model=model)
+    return StepBundle(fn=_on_mesh(prefill_step, mesh),
+                      abstract_args=(abs_params, abs_batch),
+                      shardings=(p_sh, b_sh), model=model)
 
 
 # ----------------------------------------------------------------------
-def build_decode_step(cfg: ModelConfig, device,
+def build_decode_step(cfg: ModelConfig, mesh,
                       shape: InputShape) -> StepBundle:
     """serve_step: one new token against a seq_len-deep decode state."""
     model = get_model(cfg)
-    dev = torch.device(device)
+    abs_params = model.abstract_params()
+    p_sh = param_shardings(cfg, abs_params, mesh)
     inputs = model.decode_inputs(shape)
+    dp = data_axes(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    dp_size = math.prod(sizes[a] for a in dp)
+    tok_spec = (dp,) if shape.global_batch % dp_size == 0 else ()
+    tok_sh = placements(tok_spec, mesh)
+    s_sh = state_shardings(inputs["state"], mesh)
 
     @torch.no_grad()
     def serve_step(params, tokens, state, pos):
         return model.decode_step(params, tokens, state, pos)
 
-    return StepBundle(fn=serve_step,
-                      abstract_args=(model.abstract_params(),
-                                     inputs["tokens"], inputs["state"],
-                                     inputs["pos"]),
-                      shardings=(dev, dev, dev, dev), model=model)
+    return StepBundle(fn=_on_mesh(serve_step, mesh),
+                      abstract_args=(abs_params, inputs["tokens"],
+                                     inputs["state"], inputs["pos"]),
+                      shardings=(p_sh, tok_sh, s_sh, tok_sh), model=model)
 
 
 # ----------------------------------------------------------------------
-def build_step(kind: str, cfg: ModelConfig, device,
+def build_step(kind: str, cfg: ModelConfig, mesh,
                shape: InputShape, **kw) -> StepBundle:
     if kind == "train":
-        return build_train_step(cfg, device, shape, **kw)
+        return build_train_step(cfg, mesh, shape, **kw)
     if kind == "prefill":
-        return build_prefill_step(cfg, device, shape)
+        return build_prefill_step(cfg, mesh, shape)
     if kind == "decode":
-        return build_decode_step(cfg, device, shape)
+        return build_decode_step(cfg, mesh, shape)
     raise ValueError(kind)

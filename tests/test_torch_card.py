@@ -538,6 +538,7 @@ def test_train_step_on_card_matches_cpu(card):
     the CPU: the same losses within 2e-4 (the second one after an
     update)."""
     from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve.steps import build_train_step
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import adamw
@@ -546,7 +547,8 @@ def test_train_step_on_card_matches_cpu(card):
     out = {}
     for dev in ("cuda", "cpu"):
         opt = adamw(1e-3)
-        step = build_train_step(cfg, dev, InputShape("t", 128, 2, "train"),
+        step = build_train_step(cfg, make_host_mesh(device_type=dev),
+                                InputShape("t", 128, 2, "train"),
                                 optimizer=opt)
         p = _to(params, dev)
         state, data, losses = opt.init(p), SyntheticLM(cfg, 2, 128), []
@@ -555,3 +557,145 @@ def test_train_step_on_card_matches_cpu(card):
             losses.append(loss.cpu())
         out[dev] = torch.stack(losses)
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=0, rtol=2e-4)
+
+
+# ----------------------------------------------------------------------
+# the perf flags on the card
+# ----------------------------------------------------------------------
+@pytest.fixture
+def flags():
+    """The port's flag registry, cleared after the test."""
+    from repro_torch.dist import opt_flags
+    yield opt_flags
+    opt_flags.set_flags("")
+
+
+PAD_CLASSES = [(56, 8), (14, 2), (7, 1), (24, 8), (40, 8), (12, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV", PAD_CLASSES)
+def test_pad_heads_through_flash_kernel_is_exact(card, flags, dtype, H, KV):
+    """pad_heads regroups the heads (16 kv heads, H rounded up) and the
+    kernel gives each head the numbers it gives it ungrouped."""
+    from repro_torch.models import layers as L
+    q = torch.randn(2, 200, H, 128, generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn(2, 200, KV, 128, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    base = L.flash_gqa(q, k, v, causal=True)
+    flags.set_flags("pad_heads")
+    before = flash_prefill.flash_attention.launches
+    tuned = L.flash_gqa(q, k, v, causal=True)
+    assert flash_prefill.flash_attention.launches == before + 1
+    assert torch.equal(tuned, base)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV", [(24, 8), (56, 8), (7, 1)])
+def test_pad_heads_gradients_through_backward_kernel(card, flags,
+                                                     monkeypatch, dtype, H,
+                                                     KV):
+    """Under pad_heads the kernels run at the regrouped heads (q padded,
+    each kv head duplicated). The gradients with respect to the kernels'
+    own inputs are held to autograd of the plain version on the same
+    regrouped inputs; in f32 the gradients folded back to the model's
+    heads also to the ungrouped plain version. (In bf16 each duplicate's
+    dK and dV are rounded to bf16 before the fold sums them, on both
+    paths, as ``jnp.repeat``'s gradient does in the reference: where the
+    duplicates' parts cancel, the sum keeps their rounding.)"""
+    from repro_torch.models import layers as L
+    q = torch.randn(2, 256, H, 128, generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn(2, 256, KV, 128, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    dout = torch.randn_like(q)
+    dispatch = L.ops.flash_attention
+
+    def grads(attention):
+        """(grads at the kernel's inputs, grads at q, k, v)."""
+        seen = []
+
+        def spy(*args, **kw):
+            seen.append(args)
+            return attention(*args, **kw)
+        monkeypatch.setattr(L.ops, "flash_attention", spy)
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = L.flash_gqa(*qkv)
+        assert len(seen) == 1 and seen[0][2].shape[2] == 16
+        g = torch.autograd.grad(out, [*seen[0], *qkv], dout)
+        return g[:3], g[3:]
+    flags.set_flags("pad_heads")
+    bwd = flash_prefill.flash_attention.backward_launches
+    got, folded = grads(dispatch)
+    assert flash_prefill.flash_attention.backward_launches == bwd + 1
+    want, _ = grads(ref.flash_attention_ref)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+    if dtype == torch.float32:
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain = torch.autograd.grad(ref.flash_attention_ref(*qkv), qkv, dout)
+        for g, w in zip(folded, plain):
+            torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_masked_cache_update_is_exact_on_card(card, flags):
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["qwen2-0.5b"])
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=card,
+                         device="cuda")
+    pos = torch.full((2,), 15, dtype=torch.int32, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for name in ("", "masked_cache_update"):
+            flags.set_flags(name)
+            _, state = model.prefill(params, {"tokens": toks[:, :15]},
+                                     s_max=16)
+            out[name] = model.decode_step(params, toks[:, 15], state, pos)
+    (a, sa), (b, sb) = out[""], out["masked_cache_update"]
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(sa, sb))
+
+
+def test_train_step_on_host_mesh_is_the_device_path(card):
+    """Two bf16 steps of the reduced llama built on ``make_host_mesh``
+    (one card, (1, 1)) against the same steps written out on the device
+    (loss, autograd, AdamW in place): bit for bit."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.steps import build_train_step, to_device
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["llama32-3b"]).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    mesh = make_host_mesh()
+    assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+    init = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for path in ("mesh", "device"):
+        opt = adamw(1e-3)
+        bundle = build_train_step(cfg, mesh, InputShape("t", 128, 2,
+                                                        "train"),
+                                  optimizer=opt)
+        p = _to(init, "cuda")
+        state, data, losses = opt.init(p), SyntheticLM(cfg, 2, 128), []
+        for _ in range(2):
+            batch = data.next_batch()
+            if path == "mesh":
+                p, state, loss = bundle.fn(p, state, batch)
+            else:
+                leaves = tree_leaves(p)
+                for x in leaves:
+                    x.requires_grad_(True)
+                loss, _ = bundle.model.loss(p, to_device(batch, "cuda"))
+                grads = list(torch.autograd.grad(
+                    loss, leaves, allow_unused=True, materialize_grads=True))
+                for x in leaves:
+                    x.requires_grad_(False)
+                state = opt.update_(grads, state, p)
+            losses.append(loss.detach())
+        out[path] = (torch.stack(losses), tree_leaves(p))
+    assert torch.equal(out["mesh"][0], out["device"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["mesh"][1],
+                                                 out["device"][1]))

@@ -46,3 +46,22 @@ def test_port_sources_name_neither_jax_nor_reference():
                 mod = s.split()[1]
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                     f"{path.relative_to(ROOT)}: {s}"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.dist.opt_flags",
+                                    "repro_torch.dist.sharding",
+                                    "repro_torch.launch.mesh"])
+def test_placement_modules_stand_alone(module):
+    """The flags and placement modules, imported alone, pull in neither
+    jax nor the reference, and create no process group."""
+    probe = (f"import sys, importlib\n"
+             f"importlib.import_module({module!r})\n"
+             f"import torch.distributed as dist\n"
+             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             f"('jax', 'jaxlib', 'repro'))\n"
+             f"print(bad, dist.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False"

@@ -31,6 +31,9 @@ from repro.train.data import SyntheticLM  # noqa: E402
 from repro_torch.configs import REGISTRY as T_REGISTRY  # noqa: E402
 from repro_torch.configs import reduce_for_smoke as t_reduce  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
+from repro_torch.dist.sharding import (param_shardings,  # noqa: E402
+                                       replicated)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.serve.steps import (build_decode_step,  # noqa: E402
@@ -151,9 +154,13 @@ def test_train_step_matches_reference(arch):
         updates, new_opt = r_opt.update(grads, opt_state, params)
         return ropt.apply_updates(params, updates), new_opt, loss
 
-    bundle = build_train_step(tcfg, "cpu", InputShape("t", S, B, "train"),
+    mesh = make_host_mesh(device_type="cpu")         # (1, 1), no group
+    bundle = build_train_step(tcfg, mesh, InputShape("t", S, B, "train"),
                               optimizer=t_opt)
-    assert bundle.shardings == (torch.device("cpu"),) * 3
+    assert tuple(mesh.shape) == (1, 1)
+    assert bundle.shardings[0] == param_shardings(
+        tcfg, bundle.model.abstract_params(), mesh)
+    assert bundle.shardings[1].count == replicated(mesh)
     rp = jax.tree.map(jnp.asarray, np_params)
     rs = r_opt.init(rp)
     tp = _port_params(np_params, tcfg)
@@ -215,8 +222,9 @@ def test_prefill_and_decode_steps_match_reference():
     reference's prefill and decode_step."""
     cfg, tcfg, rmodel, np_params, _ = _setup("llama32-3b")
     shape = InputShape("t", 24, 2, "prefill")
-    prefill = build_prefill_step(tcfg, "cpu", shape)
-    decode = build_decode_step(tcfg, "cpu", shape)
+    mesh = make_host_mesh(device_type="cpu")
+    prefill = build_prefill_step(tcfg, mesh, shape)
+    decode = build_decode_step(tcfg, mesh, shape)
     assert len(decode.abstract_args) == 4
     params = _port_params(np_params, tcfg)
     for p in topt.tree_leaves(params):
