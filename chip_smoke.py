@@ -3,10 +3,10 @@
 
 Phases, each fatal on failure (the script exits non-zero):
 
-  1. card: name, power limit, and the build of all five CUDA kernels
-     (the four TPU kernels' ports and flash attention's backward) from
-     the sources in this checkout (one nvcc per source, all in
-     parallel);
+  1. card: name, power limit, and the build of all six CUDA kernels
+     (the four TPU kernels' ports and the backwards of flash attention
+     and of the rwkv6 scan) from the sources in this checkout (one nvcc
+     per source, all in parallel);
   2. kernels: each kernel against its plain torch version, in bf16 and
      f32, at the shapes of the main paths and around them (flash at hd
      128 and hd 80, MHA at hd 128 (deepseek-moe-16b), non-causal at hd 64
@@ -82,18 +82,30 @@ Phases, each fatal on failure (the script exits non-zero):
      (held to the plain one), with the route each shape took (bf16 on
      wgmma, f32 on the CUDA cores), its time, the plain version's, SDPA's
      backward alone where it computes the same function, both forward +
-     backward, and the bound; (7b) llama32-3b at full width and depth in
-     bf16, 5 steps of batch 2 x 1024 through
-     ``repro_torch.launch.train.train``: finite losses, launches per step
-     (flash forward 2 x 28 with the checkpoint's recompute, backward 28,
-     no other kernel), step wall, tokens/s, the share of the bf16 peak at
-     6 x params x tokens, peak memory, and one step's profiler trace;
-     (7c) a restart at full width and 2 layers: 4 steps with a checkpoint
-     every 2, then ``train`` again from step 2, whose losses and final
-     params and moments must equal the first run's bit for bit (with the
-     checkpoint directory's filesystem and the save and load times);
-     (7d) one f32 train step at full width and 4 layers, kernels against
-     kernel-free (plain attention, autograd), TF32 off;
+     backward, and the bound; (7b) llama32-3b (28 layers) and rwkv6-3b
+     (32 layers) at full width and depth in bf16, 5 steps of batch 2 x
+     1024 each through ``repro_torch.launch.train.train``: finite
+     losses, launches per step (the forward kernel, flash or the rwkv6
+     scan, 2 x L with the checkpoint's recompute, its backward L, no
+     other kernel), step wall, tokens/s, the share of the bf16 peak at 6
+     x params x tokens, peak memory, and one step's profiler trace; (7c)
+     for each, a restart at full width and 2 layers: 4 steps with a
+     checkpoint every 2, then ``train`` again from step 2, whose losses
+     and final params and moments must equal the first run's bit for bit
+     (with the checkpoint directory's filesystem and the save and load
+     times); (7d) for each, one f32 train step at full width and 4
+     layers, kernels against kernel-free (plain attention or scan,
+     autograd) and against kernel-free in f64, TF32 off: grads within
+     1e-4 of each leaf's largest, or, where f32 itself misses that
+     (rwkv6-3b), the kernels' largest distance from f64 at most 3x the
+     kernel-free f32's; (7e) the rwkv6 backward kernel against autograd
+     of the plain scan in bf16 and f32 at rwkv6-3b's training shape
+     ([2,1024,40,64]), B = 1, hd 32 and 128, a carried state with a
+     nonzero d(final state), decays near 0, near 1 and exactly 0, T 37
+     and T 1: each gradient within the tolerance of its largest
+     magnitude, its distance from an f64 autograd beside the plain
+     f32's, two calls bit for bit, its time, the plain version's and the
+     bound;
   8. perf flags (``repro_torch.dist.opt_flags``) on one llama32-3b build
      at full width and depth in bf16: (8a) ``pad_heads``, a 1 x 1024
      prefill whose logits and cache must equal the flag-off run's bit for
@@ -127,6 +139,7 @@ off at a time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import json
@@ -668,7 +681,8 @@ def moe_plain_logits(torch, params, cfg, tokens):
     return L.lm_logits(params["embed"], x, cfg)[0]
 
 
-def rwkv6_plain_logits(torch, params, cfg, tokens):
+def rwkv6_plain_hidden(torch, params, cfg, tokens):
+    """The last layer's output [B, N, d], every scan the plain one."""
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import rwkv6 as RW
@@ -677,10 +691,18 @@ def rwkv6_plain_logits(torch, params, cfg, tokens):
         lp = _as(cfg, lp)
         h = L.rms_norm(x, lp["norm_tm"], cfg.norm_eps)
         r, k, v, w, gate = RW._time_mix_in(lp, h, cfg, None)
-        y, _ = ref.rwkv6_scan_ref(r, k, v, w, lp["u"])
+        # a zero state in the scan's arithmetic type (f64 under in_float64)
+        zero = r.float().new_zeros(r.shape[0], *lp["u"].shape, r.shape[-1])
+        y, _ = ref.rwkv6_scan_ref(r, k, v, w, lp["u"], zero)
         x = x + RW._time_mix_out(lp, y, gate, h, cfg)
         h = L.rms_norm(x, lp["norm_cm"], cfg.norm_eps)
         x = x + RW.channel_mix_seq(lp, h, None)[0]
+    return x
+
+
+def rwkv6_plain_logits(torch, params, cfg, tokens):
+    from repro_torch.models import layers as L
+    x = rwkv6_plain_hidden(torch, params, cfg, tokens)
     return L.lm_logits(params["embed"], x, cfg)[0]
 
 
@@ -1459,11 +1481,16 @@ def phase_simulator(torch, streams3) -> dict:
 # ----------------------------------------------------------------------
 # phase 7: training
 # ----------------------------------------------------------------------
-TRAIN_ARCH = "llama32-3b"
+TRAIN_ARCH = "llama32-3b"        # phase 8's model, and --train's
+TRAIN_ARCHS = ("llama32-3b", "rwkv6-3b")
+# each trained arch's kernels: (forward, backward) launch counters
+TRAIN_KERNELS = {"llama32-3b": ("flash_attention", "flash_attention_backward"),
+                 "rwkv6-3b": ("rwkv6_scan", "rwkv6_scan_backward")}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
 RESTART_LAYERS, PARITY_TRAIN_LAYERS = 2, 4
 TRAIN_LR = 1e-3                  # 7d's AdamW step
 GRAD_TOL = 1e-4                  # 7d: grads against each leaf's largest
+NOISE_FLOOR = 3                  # 7d: else x f32's own distance from f64
 
 
 def flash_bwd_cases():
@@ -1589,33 +1616,40 @@ def flash_backward_kernel(torch) -> dict:
 
 
 def train_counts(torch, reset: bool = False) -> dict:
-    """The five launch counts (set to 0 first with ``reset``)."""
-    from repro_torch.kernels import flash_prefill
+    """The six launch counts (set to 0 first with ``reset``); the rwkv6
+    backward's reads 0 in a checkout from before it."""
+    from repro_torch.kernels import flash_prefill, rwkv6_scan
     counters = launch_counters()
+    backward = {"flash_attention_backward": flash_prefill.flash_attention,
+                "rwkv6_scan_backward": rwkv6_scan.rwkv6_scan}
     if reset:
         for fn in counters.values():
             fn.launches = 0
-        flash_prefill.flash_attention.backward_launches = 0
+        for fn in backward.values():
+            fn.backward_launches = 0
     got = {k: fn.launches for k, fn in counters.items()}
-    got["flash_attention_backward"] = \
-        flash_prefill.flash_attention.backward_launches
+    for k, fn in backward.items():
+        got[k] = getattr(fn, "backward_launches", 0)
     return got
 
 
-def train_run(torch, label: str, flags: str = "") -> dict:
-    """llama32-3b at full width and depth, bf16, TRAIN_STEPS steps of
+def train_run(torch, label: str, flags: str = "",
+              arch: str = TRAIN_ARCH) -> dict:
+    """``arch`` at full width and depth, bf16, TRAIN_STEPS steps of
     TRAIN_B x TRAIN_S through ``repro_torch.launch.train.train`` (seed 0:
     every run starts from the same weights and batches) with the perf
     ``flags`` set (none: the registry is not touched, so the parent's
     checkout runs it too) and the launch counts set to 0 just before and
     read just after. Logs and returns its losses, step walls, launches
     and peak memory; fails unless every loss is finite and the launches
-    are flash forward 2 x L a step (forward and the checkpoint's
-    recompute) and backward L, no other kernel."""
+    are the arch's forward kernel 2 x L a step (forward and the
+    checkpoint's recompute) and its backward kernel L, no other kernel
+    (TRAIN_KERNELS: flash for llama32-3b, the rwkv6 scan for
+    rwkv6-3b)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models import get_model
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     L, n_params = cfg.num_layers, get_model(cfg).param_count()
     tokens = TRAIN_B * TRAIN_S
     if flags:
@@ -1627,7 +1661,7 @@ def train_run(torch, label: str, flags: str = "") -> dict:
     train_counts(torch, reset=True)
     t0 = time.perf_counter()
     try:
-        losses, wd = train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+        losses, wd = train(arch, smoke=False, steps=TRAIN_STEPS,
                            batch_size=TRAIN_B, seq_len=TRAIN_S,
                            device="cuda", log_every=1, verbose=False)
     finally:
@@ -1636,10 +1670,10 @@ def train_run(torch, label: str, flags: str = "") -> dict:
     wall = time.perf_counter() - t0
     counted = train_counts(torch)
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": 2 * L * TRAIN_STEPS,
-            "flash_attention_backward": L * TRAIN_STEPS,
-            "paged_attention": 0, "rwkv6_scan": 0, "mamba2_ssd": 0}
-    log(f"{label} {TRAIN_ARCH} train, {L} layers, {n_params / 1e9:.3f} B "
+    fwd, bwd = TRAIN_KERNELS[arch]
+    want = {k: 0 for k in counted}
+    want.update({fwd: 2 * L * TRAIN_STEPS, bwd: L * TRAIN_STEPS})
+    log(f"{label} {arch} train, {L} layers, {n_params / 1e9:.3f} B "
         f"params, bf16, batch {TRAIN_B} x {TRAIN_S}, flags "
         f"[{flags}]: losses {losses}; launches {counted} (want {want}: "
         f"forward and the checkpoint's recompute, one backward, per layer "
@@ -1661,9 +1695,10 @@ def train_run(torch, label: str, flags: str = "") -> dict:
                 peak=peak)
 
 
-def profile_train_step(torch, label: str, flags: str = "") -> None:
-    """One more step under the profiler, from fresh weights, with the
-    perf ``flags`` set: the card's busy time and its largest
+def profile_train_step(torch, label: str, flags: str = "",
+                       arch: str = TRAIN_ARCH) -> None:
+    """One more step of ``arch`` under the profiler, from fresh weights,
+    with the perf ``flags`` set: the card's busy time and its largest
     operations."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
@@ -1675,7 +1710,7 @@ def profile_train_step(torch, label: str, flags: str = "") -> None:
     from repro_torch.train.optimizer import adamw
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     model = get_model(cfg)
     opt = adamw(1e-3)
     bundle = build_train_step(cfg, make_host_mesh(), InputShape(
@@ -1689,7 +1724,7 @@ def profile_train_step(torch, label: str, flags: str = "") -> None:
         prof = kernel_time(torch, lambda: bundle.fn(params, state, batch))
     finally:
         opt_flags.set_flags("")
-    log(f"{label} one train step, flags [{flags}], profiled: "
+    log(f"{label} {arch} one train step, flags [{flags}], profiled: "
         f"{prof.get('ops')} device ops, busy {prof.get('busy_ms')} ms, span "
         f"{prof.get('span_ms')} ms; largest {prof.get('top')}")
     del params, state, bundle, model
@@ -1698,15 +1733,17 @@ def profile_train_step(torch, label: str, flags: str = "") -> None:
 
 
 def train_full(torch) -> dict:
-    """7b: ``train_run`` with no flag and one profiled step; returns the
-    run (its losses and launch counts)."""
-    run = train_run(torch, "7b")
-    profile_train_step(torch, "7b")
-    return run
+    """7b: ``train_run`` of each of TRAIN_ARCHS with no flag and one
+    profiled step; returns {arch: run (its losses and launch counts)}."""
+    runs = {}
+    for arch in TRAIN_ARCHS:
+        runs[arch] = train_run(torch, "7b", arch=arch)
+        profile_train_step(torch, "7b", arch=arch)
+    return runs
 
 
-def restart_bit_exact(torch) -> None:
-    """7c: llama32-3b at full width, RESTART_LAYERS layers: 4 steps with a
+def restart_bit_exact(torch, arch: str) -> None:
+    """7c: ``arch`` at full width, RESTART_LAYERS layers: 4 steps with a
     checkpoint every 2; then the step-4 checkpoint is set aside and
     ``train`` runs again from step 2. Steps 3-4 must give the same
     losses, and step 4 the same params and moments, bit for bit."""
@@ -1717,7 +1754,7 @@ def restart_bit_exact(torch) -> None:
     from repro_torch.dist import fault
     from repro_torch.launch.train import train
     from repro_torch.train.optimizer import tree_leaves
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=RESTART_LAYERS)
+    cfg = get_config(arch).replace(num_layers=RESTART_LAYERS)
     times = {"save": [], "load": []}
     saved = (fault.save_checkpoint, fault.load_checkpoint)
 
@@ -1750,20 +1787,21 @@ def restart_bit_exact(torch) -> None:
                         y.reshape(-1).view(torch.uint8))
             for x, y in zip(tree_leaves((a["params"], a["opt_state"])),
                             tree_leaves((b["params"], b["opt_state"])))]
-    log(f"7c restart, {RESTART_LAYERS} layers at full width: losses "
+    log(f"7c {arch} restart, {RESTART_LAYERS} layers at full width: losses "
         f"uninterrupted {losses_a}, restarted from step 2 {losses_b}; "
         f"{sum(same)} of {len(same)} params and moments leaves equal bit "
         f"for bit; checkpoint {size / 1e9:.2f} GB in {ckdir} on a {fstype} "
         f"filesystem mounted at {point}; save s "
         f"{[round(x, 2) for x in times['save']]}, load s "
         f"{[round(x, 2) for x in times['load']]}")
-    require(losses_b == losses_a[2:], "7c restarted losses differ")
+    require(losses_b == losses_a[2:], f"7c {arch} restarted losses differ")
     require(all(same) and a["step"] == b["step"] == 4,
-            "7c restarted params or moments differ")
+            f"7c {arch} restarted params or moments differ")
 
 
 def dense_plain_loss(torch, params, cfg, batch):
-    """Kernel-free loss: the dense model with the plain attention."""
+    """Kernel-free loss: the dense model with the plain attention, under
+    autograd."""
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
@@ -1777,21 +1815,78 @@ def dense_plain_loss(torch, params, cfg, batch):
                             batch["targets"])
 
 
-def train_parity(torch) -> None:
-    """7d: one f32 train step at full width, PARITY_TRAIN_LAYERS layers,
-    TF32 off, with the kernels (remat, the Function) and kernel-free
-    (plain attention, autograd), from the same params and batch: loss
-    within 2e-4 relative, grads within GRAD_TOL of each leaf's largest
-    magnitude; the updated params' difference is printed against the
-    leaf's largest and against lr (an Adam step is about lr whatever the
-    gradient's size, so where a gradient is within its error of 0 its
-    element may step either way)."""
+def rwkv6_plain_loss(torch, params, cfg, batch):
+    """Kernel-free loss: rwkv6 with the plain scan, under autograd."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    x = rwkv6_plain_hidden(torch, params, cfg, batch["tokens"])
+    return TF.cross_entropy(L.lm_logits(params["embed"], x, cfg),
+                            batch["targets"])
+
+
+PLAIN_LOSS = {"llama32-3b": dense_plain_loss, "rwkv6-3b": rwkv6_plain_loss}
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """Dotted names of ``tree``'s leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_paths(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_paths(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+@contextlib.contextmanager
+def in_float64(torch):
+    """The kernel-free functions in f64: ``Tensor.float()`` keeps an f64
+    tensor and the compute dtype float32 reads as float64, so f64 params
+    stay f64 through the model code's casts (7d's exact reference)."""
+    from repro_torch.models import layers as L
+    own = "float" in vars(torch.Tensor)
+    to_float, dtype_of = torch.Tensor.float, L.dtype_of
+
+    def keep64(self, *args, **kwargs):
+        if self.dtype == torch.float64:
+            return self
+        return to_float(self, *args, **kwargs)
+    torch.Tensor.float = keep64
+    L.dtype_of = lambda name: (torch.float64 if name == "float32"
+                               else dtype_of(name))
+    try:
+        yield
+    finally:
+        if own:
+            torch.Tensor.float = to_float
+        else:
+            del torch.Tensor.float
+        L.dtype_of = dtype_of
+
+
+def train_parity(torch, arch: str) -> None:
+    """7d: one f32 train step of ``arch`` at full width,
+    PARITY_TRAIN_LAYERS layers, TF32 off, with the kernels (remat, the
+    Function) and kernel-free (PLAIN_LOSS: the plain attention or scan,
+    autograd), from the same params and batch, and kernel-free in f64
+    (``in_float64``) as the exact reference. Loss within 2e-4 relative;
+    every gradient leaf within GRAD_TOL of its largest magnitude of the
+    kernel-free one, or, where f32 itself cannot be held so close (at
+    rwkv6-3b's full width the kernel-free f32 gradient is itself ~8e-4
+    of a leaf's largest from the f64 one), the kernels' largest distance
+    from f64 over the leaves (each over its leaf's largest) at most
+    NOISE_FLOOR x the kernel-free f32's: phase 3's rule for bf16 logits.
+    After one AdamW step the params' RMS difference within 1e-3 lr, or
+    the kernels' RMS distance from the f64 step within NOISE_FLOOR x the
+    kernel-free f32 step's; the largest difference within 2 lr (an Adam
+    step is about lr whatever the gradient's size, so where a gradient
+    is within its error of 0 its element may step either way)."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.serve.steps import to_device
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import adamw, tree_leaves, tree_map
-    cfg = get_config(TRAIN_ARCH).replace(
+    cfg = get_config(arch).replace(
         num_layers=PARITY_TRAIN_LAYERS, param_dtype="float32",
         compute_dtype="float32")
     model = get_model(cfg)
@@ -1806,52 +1901,216 @@ def train_parity(torch) -> None:
     loss_k, _ = model.loss(params, batch)
     grads_k = torch.autograd.grad(loss_k, leaves)
     counted = train_counts(torch)
-    loss_p = dense_plain_loss(torch, params, cfg, batch)
+    loss_p = PLAIN_LOSS[arch](torch, params, cfg, batch)
     grads_p = torch.autograd.grad(loss_p, leaves)
     for p in leaves:
         p.requires_grad_(False)
+    params64 = tree_map(lambda t: t.double().requires_grad_(), params)
+    with in_float64(torch):
+        loss_64 = PLAIN_LOSS[arch](torch, params64, cfg, batch)
+        require(loss_64.dtype == torch.float64, f"7d {arch} f64 loss is "
+                                                f"{loss_64.dtype}")
+        grads_64 = torch.autograd.grad(loss_64, tree_leaves(params64))
+    del params64
     loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    grad_err = max(float((a - b).abs().max() / b.abs().max())
-                   for a, b in zip(grads_k, grads_p))
+
+    def dist(a, b):      # largest |a - b| over b's largest magnitude
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+    per_leaf = [(dist(a, b), dist(a, c), dist(b, c), name)
+                for a, b, c, name in zip(grads_k, grads_p, grads_64,
+                                         leaf_paths(params))]
+    over = [x for x in per_leaf if x[0] > GRAD_TOL]
+    grad_err, k64, p64 = (max(x[i] for x in per_leaf) for i in range(3))
+    log(f"7d {arch}: leaves by the kernels' distance from the kernel-free "
+        f"f32 gradient, each over the leaf's largest [kernels vs f32, "
+        f"kernels vs f64, kernel-free f32 vs f64]: " + "; ".join(
+            f"{n}: {e:.2e}, {k64:.2e}, {p64:.2e}"
+            for e, k64, p64, n in sorted(per_leaf, reverse=True)[:6])
+        + f"; largest over all leaves: kernels vs f64 {k64:.2e}, "
+        f"kernel-free f32 vs f64 {p64:.2e}; {len(over)} of "
+        f"{len(per_leaf)} leaves past GRAD_TOL")
     updated = []
-    for grads in (grads_k, grads_p):
+    for grads in (grads_k, grads_p, grads_64):
         opt = adamw(TRAIN_LR)
         p = tree_map(torch.clone, params)
-        opt.update_(list(grads), opt.init(p), p)
+        opt.update_([g.float() for g in grads], opt.init(p), p)
         updated.append(tree_leaves(p))
-    diffs = [(a - b).abs() for a, b in zip(*updated)]
+
+    def rms(xs, ys):
+        return max(float((a - b).square().mean().sqrt())
+                   for a, b in zip(xs, ys))
+    diffs = [(a - b).abs() for a, b in zip(updated[0], updated[1])]
     p_err = max(float(d.max() / b.abs().max())
                 for d, b in zip(diffs, updated[1]))
     p_rms = max(float(d.square().mean().sqrt()) for d in diffs)
     p_max = max(float(d.max()) for d in diffs)
     flips = sum(int((d > 0.1 * TRAIN_LR).sum()) for d in diffs)
-    log(f"7d f32 train step, {PARITY_TRAIN_LAYERS} layers at full width: "
-        f"loss kernels {loss_k:.6f}, plain {loss_p:.6f} "
+    k_rms64, p_rms64 = (rms(updated[i], updated[2]) for i in (0, 1))
+    log(f"7d {arch} f32 train step, {PARITY_TRAIN_LAYERS} layers at full "
+        f"width: loss kernels {loss_k:.6f}, plain {loss_p:.6f} "
         f"(relative {rel:.2e}, tol 2e-4); grads max |diff| / leaf max "
-        f"{grad_err:.2e} (tol {GRAD_TOL}); launches {counted}; after one "
-        f"AdamW step (lr {TRAIN_LR}) params max |diff| / leaf max "
-        f"{p_err:.2e}, RMS {p_rms:.2e} ({p_rms / TRAIN_LR:.2e} lr), max "
-        f"{p_max:.2e} ({p_max / TRAIN_LR:.2f} lr), {flips} elements past "
-        f"0.1 lr")
-    require(rel <= 2e-4, f"7d loss differs by {rel:.2e}")
-    require(grad_err <= GRAD_TOL, f"7d grads differ by {grad_err:.2e}")
-    require(counted["flash_attention_backward"] == PARITY_TRAIN_LAYERS,
-            f"7d backward launches {counted}")
-    require(p_rms <= 1e-3 * TRAIN_LR and p_max <= 2.0 * TRAIN_LR,
-            f"7d updated params differ: RMS {p_rms:.2e}, max {p_max:.2e}")
-    del params, grads_k, grads_p, updated, diffs
+        f"{grad_err:.2e} (tol {GRAD_TOL}, else {NOISE_FLOOR} x the f32 "
+        f"noise floor); launches {counted}; after one AdamW step (lr "
+        f"{TRAIN_LR}) params max |diff| / leaf max {p_err:.2e}, RMS "
+        f"{p_rms:.2e} ({p_rms / TRAIN_LR:.2e} lr), max {p_max:.2e} "
+        f"({p_max / TRAIN_LR:.2f} lr), {flips} elements past 0.1 lr; RMS "
+        f"from the f64 step: kernels {k_rms64:.2e}, kernel-free f32 "
+        f"{p_rms64:.2e}")
+    require(rel <= 2e-4, f"7d {arch} loss differs by {rel:.2e}")
+    require(grad_err <= GRAD_TOL or k64 <= NOISE_FLOOR * p64,
+            f"7d {arch} grads differ by {grad_err:.2e}, and from f64 by "
+            f"{k64:.2e} against the kernel-free f32's {p64:.2e}")
+    require(counted[TRAIN_KERNELS[arch][1]] == PARITY_TRAIN_LAYERS,
+            f"7d {arch} backward launches {counted}")
+    require((p_rms <= 1e-3 * TRAIN_LR or k_rms64 <= NOISE_FLOOR * p_rms64)
+            and p_max <= 2.0 * TRAIN_LR,
+            f"7d {arch} updated params differ: RMS {p_rms:.2e} (from f64 "
+            f"{k_rms64:.2e} against {p_rms64:.2e}), max {p_max:.2e}")
+    del params, grads_k, grads_p, grads_64, updated, diffs
     gc.collect()
     torch.cuda.empty_cache()
 
 
+def rwkv6_bwd_cases():
+    # (label, B, T, NH, hd, carried, decays): the training shape first
+    # (rwkv6-3b at batch 2 x 1024; no carried state, as in training);
+    # decays None: the model's, exp(-exp(w0 + lora)); "zeros": the
+    # model's with a tenth exactly 0 (exp(-exp(x)) underflows in f32)
+    yield "train", 2, 1024, 40, 64, False, None
+    yield "B1", 1, 1024, 40, 64, False, None
+    yield "carried", 2, 1024, 40, 64, True, None
+    yield "hd32", 2, 1024, 80, 32, True, None
+    yield "hd128", 2, 1024, 20, 128, True, None
+    yield "near0", 2, 1024, 40, 64, True, (1e-6, 1e-3)
+    yield "near1", 2, 1024, 40, 64, True, (0.999, 1.0)
+    yield "zeros", 2, 1024, 40, 64, True, "zeros"
+    yield "short", 1, 37, 40, 64, True, None
+    yield "one", 1, 1, 40, 64, True, None
+
+
+def plain_rwkv6_grads(torch, ins, dy, ds):
+    """(dr, dk, dv, dw, du, dstate): autograd of the plain scan."""
+    from repro_torch.kernels import ref
+    leaves = [t.detach().requires_grad_() for t in ins]
+    return torch.autograd.grad(ref.rwkv6_scan_ref(*leaves), leaves, (dy, ds))
+
+
+def log_forward_from_f64(torch, ins) -> None:
+    """The f32 forward kernel's y and final state, and the plain scan's,
+    each at its largest distance from the f64 plain scan over that
+    tensor's largest: what the forward adds to 7d's distance from f64."""
+    from repro_torch.kernels import ref, rwkv6_scan
+    with torch.no_grad():
+        got = rwkv6_scan.rwkv6_scan(*ins)
+        plain = ref.rwkv6_scan_ref(*ins)
+        with in_float64(torch):
+            exact = ref.rwkv6_scan_ref(*(t.double() for t in ins))
+    dist = [[float((a.double() - c).abs().max() / c.abs().max())
+             for a, c in zip(x, exact)] for x in (got, plain)]
+    log(f"7e rwkv6 forward train    float32: y, final state from the f64 "
+        f"scan over its largest: kernel ({rwkv6_scan.kernel_for(*ins[:4])}) "
+        f"{[f'{x:.2e}' for x in dist[0]]}, plain "
+        f"{[f'{x:.2e}' for x in dist[1]]}")
+
+
+def rwkv6_backward_kernel(torch) -> dict:
+    """7e: the rwkv6 backward kernel against autograd of the plain scan,
+    in bf16 and f32: each of the six gradients within TOL of its largest
+    magnitude (its sums run over up to T states of |S| up to ~100 near
+    decay 1, in another order than autograd's, so an element near 0
+    cannot be held to TOL of itself), two calls bit for bit equal, its
+    time (CUDA events, cold L2), the plain forward + backward's, and the
+    bound (12 operations per step, key and value: the state, G's update
+    and the four sums; each input and gradient moved once). Returns the
+    JSON row (training shape, bf16)."""
+    from repro_torch.kernels import rwkv6_scan
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    g = torch.Generator(device="cuda").manual_seed(9)
+    row = None
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        for label, B, T, NH, hd, carried, decay in rwkv6_bwd_cases():
+            def randn(*shape):
+                return torch.randn(*shape, generator=g, device="cuda")
+            r, k, v, dy = (randn(B, T, NH, hd).to(dt) for _ in range(4))
+            if decay in (None, "zeros"):
+                w = torch.exp(-torch.exp(0.5 * randn(B, T, NH, hd) - 1.0))
+                if decay == "zeros":
+                    w = torch.where(torch.rand(w.shape, generator=g,
+                                               device="cuda") < 0.1,
+                                    torch.zeros_like(w), w)
+            else:
+                lo, hi = decay
+                w = lo + (hi - lo) * torch.rand(B, T, NH, hd, generator=g,
+                                                device="cuda")
+            u = 0.1 * randn(NH, hd)
+            zero = torch.zeros(B, NH, hd, hd, device="cuda")
+            s0, ds = ((randn(B, NH, hd, hd), randn(B, NH, hd, hd))
+                      if carried else (zero, zero))
+            ins = (r, k, v, w, u, s0)
+
+            def kernel():
+                return rwkv6_scan.rwkv6_scan_backward(*ins, dy, ds)
+            got, again = kernel(), kernel()
+            want = plain_rwkv6_grads(torch, ins, dy, ds)
+            with in_float64(torch):
+                exact = plain_rwkv6_grads(torch, [t.double() for t in ins],
+                                          dy.double(), ds.double())
+            torch.cuda.synchronize()
+            errs = [max_err(torch, a, b) for a, b in zip(got, want)]
+            scales = [float(b.float().abs().max()) for b in want]
+            # each gradient's distance from the f64 one over its largest:
+            # the kernel's, and the plain f32 autograd's
+            from64 = [[float((a.double() - c).abs().max() / c.abs().max())
+                       for a, c in zip(grads, exact)] for grads in (got, want)]
+            ok = all(e <= tol * max(sc, 1e-30) for e, sc in zip(errs, scales))
+            same = all(same_bits(torch, a, b) for a, b in zip(got, again))
+            ms = cuda_ms(torch, kernel, flush=flush)
+            plain_ms = cuda_ms(torch, lambda: plain_rwkv6_grads(
+                torch, ins, dy, ds), reps=2, warmup=1)
+            flops = 12.0 * B * T * NH * hd * hd
+            nbytes = nbytes_of(*ins, dy, ds, *got)
+            b_ms, b_by = bound(flops, nbytes, dtype_name)
+            log(f"7e rwkv6 backward {label:7s} {dtype_name:8s} B={B} T={T} "
+                f"NH={NH} hd={hd} carried={carried} "
+                f"w={decay or 'model'}: max_abs_err dr dk dv dw du dstate "
+                f"{[f'{e:.3e}' for e in errs]} against largest "
+                f"{[f'{x:.3e}' for x in scales]} (tol {tol} of it); from "
+                f"f64 over its largest: kernel "
+                f"{[f'{x:.2e}' for x in from64[0]]}, plain "
+                f"{[f'{x:.2e}' for x in from64[1]]}; two "
+                f"calls bit for bit {same}; kernel {ms:.4f} ms, plain "
+                f"forward + backward {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {b_ms / ms:.1%} of it")
+            require(ok, f"rwkv6 backward {label} {dtype_name}: errors "
+                        f"{errs} over {tol} of {scales}")
+            require(same, f"rwkv6 backward {label} {dtype_name}: two calls "
+                          f"differ")
+            if label == "train" and dtype_name == "float32":
+                log_forward_from_f64(torch, ins)
+            if label == "train" and dtype_name == "bfloat16":
+                row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            del r, k, v, w, dy, u, s0, ds, ins, got, again, want, exact
+    del flush_buf
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_training(torch):
-    """Phase 7: 7a to 7d; returns (7a's JSON row, 7b's run)."""
-    row = flash_backward_kernel(torch)
-    run = train_full(torch)
-    restart_bit_exact(torch)
-    train_parity(torch)
-    return row, run
+    """Phase 7: 7a to 7e; returns (7a's and 7e's JSON rows, 7b's runs)."""
+    rows = {"flash_attention_backward": flash_backward_kernel(torch)}
+    runs = train_full(torch)
+    for arch in TRAIN_ARCHS:
+        restart_bit_exact(torch, arch)
+    for arch in TRAIN_ARCHS:
+        train_parity(torch, arch)
+    rows["rwkv6_scan_backward"] = rwkv6_backward_kernel(torch)
+    return rows, runs
 
 
 # ----------------------------------------------------------------------
@@ -2000,7 +2259,7 @@ def phase_flags(torch, base: dict) -> dict:
     """Phase 8: 8a to 8c; returns the launch counts of its main-path
     runs."""
     counted = flags_serving(torch)
-    counted["flash_attention_backward"] = 0
+    counted["flash_attention_backward"] = counted["rwkv6_scan_backward"] = 0
     for k, n in flags_training(torch, base).items():
         counted[k] += n
     return counted
@@ -2302,13 +2561,15 @@ def main() -> int:
         counted[k] += n
     log(f"phase 6 (simulator): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows["flash_attention_backward"], trained = phase_training(torch)
-    counted["flash_attention_backward"] = 0
-    for k, n in trained["counted"].items():
-        counted[k] += n
+    trained_rows, trained = phase_training(torch)
+    rows.update(trained_rows)
+    counted["flash_attention_backward"] = counted["rwkv6_scan_backward"] = 0
+    for run in trained.values():
+        for k, n in run["counted"].items():
+            counted[k] += n
     log(f"phase 7 (training): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    for k, n in phase_flags(torch, trained).items():
+    for k, n in phase_flags(torch, trained[TRAIN_ARCH]).items():
         counted[k] += n
     log(f"phase 8 (perf flags): {time.perf_counter() - t0:.1f} s")
 
@@ -2325,6 +2586,10 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/flash_backward.cu",
             "src/repro/kernels/ref.py:20 (jax.value_and_grad over "
             "flash_attention_ref; no Pallas backward)"),
+        "rwkv6_scan_backward": (
+            "src/repro_torch/kernels/csrc/rwkv6_backward.cu",
+            "src/repro/kernels/ref.py:81 (jax.value_and_grad over "
+            "rwkv6_scan_ref; no Pallas backward)"),
     }
     kernels = []
     for name, (source, replaces) in info.items():

@@ -1,12 +1,15 @@
-"""RWKV6 time-mix scan for prefill: the CUDA kernel's wrapper and its
-plain torch version.
+"""RWKV6 time-mix scan for prefill and training: the CUDA kernels'
+wrappers and their plain torch version.
 
 rwkv6-3b is attention-free: each layer's prefill runs this recurrence
 over the prompt, and its final state is the whole handoff to decode (the
-paper's degenerate-transfer case). The kernels (``csrc/rwkv6_scan.cu``)
-replace the Pallas TPU kernel ``repro/kernels/rwkv6_scan.py::
-_rwkv6_kernel``; the header says what bounds them on the H100 and how
-they are laid out. Which inputs take which kernel (``kernel_for``):
+paper's degenerate-transfer case). The forward kernels
+(``csrc/rwkv6_scan.cu``) replace the Pallas TPU kernel
+``repro/kernels/rwkv6_scan.py::_rwkv6_kernel``. The backward kernel
+(``csrc/rwkv6_backward.cu``) has no Pallas counterpart: the reference
+trains through ``jax.value_and_grad`` of the plain version. Each header
+says what bounds the kernel on the H100 and how it is laid out. Which
+inputs take which forward kernel (``kernel_for``):
 
 - ``rwkv6_chunked``: bf16 r, k, v at head dim 64 (rwkv6-3b's), with r,
   k, v and w on 16-byte aligned bases and strides. The chunked form on
@@ -16,8 +19,14 @@ they are laid out. Which inputs take which kernel (``kernel_for``):
   bf16. It scans token by token.
 
 Both mask their ragged tail, so they take any T, and one call is one
-launch. The wrapper takes the plain version only for CPU tensors; for a
-CUDA tensor it launches a kernel or raises.
+launch. The wrappers take the plain version only for CPU tensors
+(autograd differentiates it there); for a CUDA tensor they launch a
+kernel or raise. ``rwkv6_scan`` goes through the ``RWKV6Scan`` autograd
+Function (a forward kernel, then the backward kernel) only when grad is
+enabled and an input requires it; otherwise it launches the forward
+kernel alone, as serving does. ``rwkv6_scan.launches`` counts the
+forward kernels' launches, ``rwkv6_scan.backward_launches`` the
+backward's.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .flash_prefill import _DTYPES, no_backward
+from .flash_prefill import _DTYPES
 from .ref import rwkv6_scan_ref as plain
 
 HEAD_DIMS = (32, 64, 128)
@@ -37,6 +46,10 @@ _KERNELS = {"step": 0, "chunked": 1}
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_i, _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
              *[_ll] * 12, _p]
+_BWD_ARGTYPES = [_i, _i, *[_p] * 16, _i, _i, _i, *[_ll] * 15, _p]
+# steps of the backward kernel's sub-chunk: its states S_t fill 128 KB of
+# shared memory (csrc/rwkv6_backward.cu, kHistBytes)
+SUB_CHUNK = {hd: 32768 // (hd * hd) for hd in HEAD_DIMS}
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -95,12 +108,19 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return plain(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
-    no_backward("rwkv6_scan", r, k, v, w, u, state)
-    B, T, NH, hd = r.shape
     if state is None:
+        B, _, NH, hd = r.shape
         state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
                             device=r.device)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        return RWKV6Scan.apply(r, k, v, w, u, state)
+    return _forward(r, k, v, w, u, state)
+
+
+def _forward(r, k, v, w, u, state):
     _check(r, k, v, w, u, state)
+    B, T, NH, hd = r.shape
     state = state.contiguous()
     u32 = u.float().contiguous()           # [NH, hd]: a few KB
     y = torch.empty((B, T, NH, hd), dtype=r.dtype, device=r.device)
@@ -120,4 +140,78 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s_out
 
 
+def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state: Optional[torch.Tensor], dy: torch.Tensor,
+                        ds_out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, dstate) of ``rwkv6_scan(r, k, v, w, u,
+    state)`` for the gradients ``dy`` of y and ``ds_out`` of the final
+    state (default zeros), each in its input's dtype (dstate f32). On CPU
+    tensors: autograd of the plain version."""
+    B, T, NH, hd = r.shape
+    if state is None:
+        state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    if ds_out is None:
+        ds_out = torch.zeros_like(state, dtype=torch.float32)
+    if r.device.type == "cpu":
+        ins = [t.detach().requires_grad_() for t in (r, k, v, w, u, state)]
+        with torch.enable_grad():
+            outs = plain(*ins)
+            grads = torch.autograd.grad(outs, ins, (dy, ds_out),
+                                        allow_unused=True)
+        return tuple(torch.zeros_like(x) if g is None else g
+                     for x, g in zip(ins, grads))
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
+    _check(r, k, v, w, u, state)
+    if dy.shape != r.shape or dy.dtype != r.dtype or \
+            ds_out.shape != state.shape or ds_out.dtype != torch.float32:
+        raise ValueError(f"rwkv6_scan backward: dy must be {r.dtype} "
+                         f"{tuple(r.shape)} and ds_out float32 "
+                         f"{tuple(state.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}, {ds_out.dtype} "
+                         f"{tuple(ds_out.shape)}")
+    dy, state, ds_out = (t.contiguous() for t in (dy, state, ds_out))
+    u32 = u.float().contiguous()
+    dr, dk, dv = (torch.empty((B, T, NH, hd), dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    dw = torch.empty((B, T, NH, hd), dtype=torch.float32, device=r.device)
+    du = torch.zeros((NH, hd), dtype=torch.float32, device=r.device)
+    if B * NH == 0 or T == 0:
+        return dr, dk, dv, dw, du.to(u.dtype), ds_out.clone()
+    dstate = torch.empty_like(state)
+    # the state at each sub-chunk's start, and each (b, h)'s share of du
+    scratch = torch.empty((B, NH, -(-T // SUB_CHUNK[hd]), hd, hd),
+                          dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, NH, hd), dtype=torch.float32, device=r.device)
+    launch = _build.launcher("rwkv6_backward", "rwkv6_scan_bwd",
+                             _BWD_ARGTYPES)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch(_DTYPES[r.dtype], hd, *(t.data_ptr() for t in (
+            r, k, v, w, dy, u32, state, ds_out, dr, dk, dv, dw, du_part, du,
+            dstate, scratch)), B, T, NH,
+            *r.stride()[:3], *k.stride()[:3], *w.stride()[:3],
+            *v.stride()[:3], *dy.stride()[:3], stream)
+    rwkv6_scan.backward_launches += 1
+    return dr, dk, dv, dw, du.to(u.dtype), dstate
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        y, s_out = _forward(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds_out):
+        return rwkv6_scan_backward(*ctx.saved_tensors, dy, ds_out)
+
+
 rwkv6_scan.launches = 0
+rwkv6_scan.backward_launches = 0

@@ -14,9 +14,10 @@ Re-run with more ``--steps`` and the same ``--ckpt-dir`` to restore the
 latest checkpoint and go on from it. The step is built on
 ``make_host_mesh`` of ``--device``: one device, (1, 1), in a process with
 no process group. Perf flags come from ``REPRO_OPT`` (e.g.
-``REPRO_OPT=remat_dots,bf16_logits``; ``dist/opt_flags.py``). The rwkv6
-and SSD scan kernels have no backward yet: the ssm and hybrid families
-train on the CPU only.
+``REPRO_OPT=remat_dots,bf16_logits``; ``dist/opt_flags.py``). rwkv6-3b
+trains on the card through the rwkv6 scan's forward and backward kernels
+(``--full --arch rwkv6-3b``); the SSD scan kernel has no backward yet,
+so the hybrid family trains on the CPU only.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@
 
   dense   transformer.py (llama32-3b, qwen3, qwen2, yi, command-r)
   moe     moe.py         (deepseek-moe-16b, moonshot-v1-16b-a3b)
-  ssm     rwkv6.py       (rwkv6-3b; prefill through the rwkv6_scan kernel)
+  ssm     rwkv6.py       (rwkv6-3b; prefill through the rwkv6_scan kernel,
+                          training also through its backward kernel)
   hybrid  mamba2.py      (zamba2-2.7b; prefill through the mamba2_ssd and
                           flash kernels)
   vlm     vlm.py         (internvl2-2b; batch {"patches", "tokens"})

@@ -257,8 +257,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: bool = True):
-    """Differentiable on the CPU only: the scan kernel has no backward
-    yet, and raises under grad on the card."""
+    """Differentiable on both devices: on the card the scan's gradient is
+    the rwkv6 backward kernel (``kernels/rwkv6_scan.py::RWKV6Scan``)."""
     logits = forward(params, batch["tokens"], cfg, remat=remat)
     return TF.cross_entropy(logits, batch["targets"], batch.get("mask")), {}
 

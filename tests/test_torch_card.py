@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each against its plain torch version
-(flash's backward through autograd), the kernels without a backward
-raising under grad, a train step and the reduced models' prefill +
+(flash's and the rwkv6 scan's backward through autograd), the kernels
+without a backward raising under grad, a train step and the reduced models' prefill +
 decode on the card against the same on the CPU. They skip without a card (the kernels have no CPU mode). This file imports neither jax nor the reference, so it also runs
 on a machine that has only torch:
 
@@ -445,6 +445,7 @@ def test_new_families_match_cpu(card, arch):
 
 # ----------------------------------------------------------------------
 # the flash backward kernel, and the kernels that have no backward yet
+# (the SSD scan and paged decode)
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,T,H,KV,hd,causal,window,q_offset", [
@@ -505,9 +506,6 @@ def test_flash_backward_is_deterministic(card):
 def test_kernels_without_backward_raise_under_grad(card):
     x = torch.randn(1, 64, 2, 64, generator=card, device="cuda",
                     requires_grad=True)
-    w = torch.rand(1, 64, 2, 64, generator=card, device="cuda")
-    with pytest.raises(RuntimeError, match="rwkv6_scan: .*no backward"):
-        rwkv6_scan.rwkv6_scan(x, x, x, w, torch.zeros(2, 64, device="cuda"))
     dt = torch.rand(1, 64, 2, generator=card, device="cuda")
     Bm = torch.randn(1, 64, 64, generator=card, device="cuda")
     with pytest.raises(RuntimeError, match="mamba2_ssd: .*no backward"):
@@ -521,30 +519,97 @@ def test_kernels_without_backward_raise_under_grad(card):
         paged_decode.paged_attention(q, pages, pages, bt, lens)
     with torch.no_grad():                  # serving runs as before
         paged_decode.paged_attention(q, pages, pages, bt, lens)
-    cfg = configs.reduce_for_smoke(configs.REGISTRY["rwkv6-3b"])
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["zamba2-2.7b"])
     model = get_model(cfg)
     params = model.init(card, "cuda")
     for p in tree_leaves(params):
         p.requires_grad_(True)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=card,
                          device="cuda")
-    with pytest.raises(RuntimeError, match="rwkv6_scan: .*no backward"):
+    with pytest.raises(RuntimeError, match="mamba2_ssd: .*no backward"):
         model.loss(params, {"tokens": toks, "targets": toks})
 
 
-def test_train_step_on_card_matches_cpu(card):
-    """Two f32 steps of the reduced llama's train step (flash forward and
-    backward kernels on the card) from the same params and batches as on
-    the CPU: the same losses within 2e-4 (the second one after an
-    update)."""
+# ----------------------------------------------------------------------
+# the rwkv6 backward kernel
+# ----------------------------------------------------------------------
+def _rwkv6_grads(fn, ins, dy, ds):
+    """Autograd of ``fn`` (the kernel's Function or the plain scan) over
+    r, k, v, w, u and the state."""
+    leaves = [t.clone().requires_grad_() for t in ins]
+    return torch.autograd.grad(fn(*leaves), leaves, (dy, ds))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,NH,hd,w_lo,w_hi,zeros", [
+    (2, 1024, 40, 64, 0.45, 0.95, False),   # rwkv6-3b's training shape
+    (1, 300, 4, 64, 0.45, 0.95, False),     # B = 1
+    (2, 77, 3, 32, 1e-6, 1e-3, False),      # hd 32, decays near 0
+    (2, 130, 2, 128, 0.999, 1.0, False),    # hd 128, decays near 1
+    (1, 1024, 4, 64, 0.999, 1.0, False),    # decays near 1 over T = 1024
+    (1, 37, 4, 64, 0.0, 1.0, True),         # T < a sub-chunk's 64, exact 0s
+    (2, 1, 4, 64, 0.45, 0.95, False),       # a single step
+])
+def test_rwkv6_backward_kernel_matches_plain(card, dtype, B, T, NH, hd,
+                                            w_lo, w_hi, zeros):
+    """The six gradients through the RWKV6Scan Function (forward and
+    backward kernels), from a carried state with a nonzero d(final
+    state), against autograd of the plain version: each within the
+    dtype's tolerance of its largest magnitude."""
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, hd, w_lo, w_hi, dtype,
+                                zeros)
+    s0 = _rand(card, (B, NH, hd, hd))
+    dy = _rand(card, (B, T, NH, hd)).to(dtype)
+    ds = _rand(card, (B, NH, hd, hd))
+    ins = (r, k, v, w, u, s0)
+    fwd, bwd = (rwkv6_scan.rwkv6_scan.launches,
+                rwkv6_scan.rwkv6_scan.backward_launches)
+    got = _rwkv6_grads(rwkv6_scan.rwkv6_scan, ins, dy, ds)
+    assert (rwkv6_scan.rwkv6_scan.launches,
+            rwkv6_scan.rwkv6_scan.backward_launches) == (fwd + 1, bwd + 1)
+    want = _rwkv6_grads(ref.rwkv6_scan_ref, ins, dy, ds)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.isfinite(g.float()).all()
+        scale = float(x.float().abs().max())
+        torch.testing.assert_close(g.float(), x.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_backward_is_deterministic(card, dtype):
+    """Two calls give the same bits (no atomics); under torch.no_grad the
+    scan launches its forward kernel alone."""
+    B, T, NH, hd = 2, 300, 4, 64
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, hd, 0.45, 0.95, dtype)
+    s0, ds = (_rand(card, (B, NH, hd, hd)) for _ in range(2))
+    dy = _rand(card, (B, T, NH, hd)).to(dtype)
+    a = rwkv6_scan.rwkv6_scan_backward(r, k, v, w, u, s0, dy, ds)
+    b = rwkv6_scan.rwkv6_scan_backward(r, k, v, w, u, s0, dy, ds)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    bwd = rwkv6_scan.rwkv6_scan.backward_launches
+    with torch.no_grad():
+        y, _ = rwkv6_scan.rwkv6_scan(r.requires_grad_(), k, v, w, u, s0)
+    assert not y.requires_grad
+    assert rwkv6_scan.rwkv6_scan.backward_launches == bwd
+
+
+@pytest.mark.parametrize("arch", ["llama32-3b", "rwkv6-3b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """Two f32 steps of the reduced model's train step (llama: the flash
+    forward and backward kernels on the card; rwkv6: the scan's) from the
+    same params and batches as on the CPU: the same losses within 2e-4
+    (the second one after an update)."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve.steps import build_train_step
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import adamw
-    cfg = configs.reduce_for_smoke(configs.REGISTRY["llama32-3b"])
+    cfg = configs.reduce_for_smoke(configs.REGISTRY[arch])
     params = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     out = {}
+    bwd = (flash_prefill.flash_attention.backward_launches,
+           rwkv6_scan.rwkv6_scan.backward_launches)
     for dev in ("cuda", "cpu"):
         opt = adamw(1e-3)
         step = build_train_step(cfg, make_host_mesh(device_type=dev),
@@ -557,6 +622,9 @@ def test_train_step_on_card_matches_cpu(card):
             losses.append(loss.cpu())
         out[dev] = torch.stack(losses)
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=0, rtol=2e-4)
+    launched = (flash_prefill.flash_attention.backward_launches - bwd[0],
+                rwkv6_scan.rwkv6_scan.backward_launches - bwd[1])
+    assert launched[arch == "rwkv6-3b"] == 2 * cfg.num_layers
 
 
 # ----------------------------------------------------------------------
