@@ -3,10 +3,10 @@
 
 Phases, each fatal on failure (the script exits non-zero):
 
-  1. card: name, power limit, and the build of all six CUDA kernels
-     (the four TPU kernels' ports and the backwards of flash attention
-     and of the rwkv6 scan) from the sources in this checkout (one nvcc
-     per source, all in parallel);
+  1. card: name, power limit, and the build of all seven CUDA kernels
+     (the four TPU kernels' ports and the backwards of flash attention,
+     of the rwkv6 scan and of the SSD scan) from the sources in this
+     checkout (one nvcc per source, all in parallel);
   2. kernels: each kernel against its plain torch version, in bf16 and
      f32, at the shapes of the main paths and around them (flash at hd
      128 and hd 80, MHA at hd 128 (deepseek-moe-16b), non-causal at hd 64
@@ -82,30 +82,35 @@ Phases, each fatal on failure (the script exits non-zero):
      (held to the plain one), with the route each shape took (bf16 on
      wgmma, f32 on the CUDA cores), its time, the plain version's, SDPA's
      backward alone where it computes the same function, both forward +
-     backward, and the bound; (7b) llama32-3b (28 layers) and rwkv6-3b
-     (32 layers) at full width and depth in bf16, 5 steps of batch 2 x
-     1024 each through ``repro_torch.launch.train.train``: finite
-     losses, launches per step (the forward kernel, flash or the rwkv6
-     scan, 2 x L with the checkpoint's recompute, its backward L, no
-     other kernel), step wall, tokens/s, the share of the bf16 peak at 6
-     x params x tokens, peak memory, and one step's profiler trace; (7c)
-     for each, a restart at full width and 2 layers: 4 steps with a
-     checkpoint every 2, then ``train`` again from step 2, whose losses
-     and final params and moments must equal the first run's bit for bit
-     (with the checkpoint directory's filesystem and the save and load
-     times); (7d) for each, one f32 train step at full width and 4
-     layers, kernels against kernel-free (plain attention or scan,
-     autograd) and against kernel-free in f64, TF32 off: grads within
-     1e-4 of each leaf's largest, or, where f32 itself misses that
-     (rwkv6-3b), the kernels' largest distance from f64 at most 3x the
-     kernel-free f32's; (7e) the rwkv6 backward kernel against autograd
+     backward, and the bound; (7b) llama32-3b (28 layers), rwkv6-3b (32
+     layers) and zamba2-2.7b (54 Mamba2 layers, 9 shared-block calls) at
+     full width and depth in bf16, 5 steps of batch 2 x 1024 each
+     through ``repro_torch.launch.train.train``: finite losses, launches
+     per step (each forward kernel, flash, the rwkv6 scan or the SSD
+     scan, twice a call with the checkpoint's recompute, its backward
+     once, no other kernel), step wall, tokens/s, the share of the bf16
+     peak at 6 x params x tokens, peak memory, and one step's profiler
+     trace; (7c) for each, a restart at full width and 2 layers (zamba2:
+     6, one group): 4 steps with a checkpoint every 2, then ``train``
+     again from step 2, whose losses and final params and moments must
+     equal the first run's bit for bit (with the checkpoint directory's
+     filesystem and the save and load times); (7d) for each, one f32
+     train step at full width and 4 layers (zamba2: 12, two groups),
+     kernels against kernel-free (plain attention and scans, autograd)
+     and against kernel-free in f64, TF32 off: grads within 1e-4 of each
+     leaf's largest, or, where f32 itself misses that (rwkv6-3b), the
+     kernels' largest distance from f64 at most 3x the kernel-free
+     f32's; (7e) the rwkv6 backward kernel against autograd
      of the plain scan in bf16 and f32 at rwkv6-3b's training shape
      ([2,1024,40,64]), B = 1, hd 32 and 128, a carried state with a
      nonzero d(final state), decays near 0, near 1 and exactly 0, T 37
      and T 1: each gradient within the tolerance of its largest
      magnitude, its distance from an f64 autograd beside the plain
      f32's, two calls bit for bit, its time, the plain version's and the
-     bound;
+     bound; (7f) the SSD backward kernel likewise in bf16 and f32 at
+     zamba2-2.7b's training shape ([2,1024,80,64], N 64), B = 1, a
+     carried state with a nonzero d(final state), N 16 at P 32 and N
+     128, decays near 1 and exactly 0, no D, T 37 and T 1;
   8. perf flags (``repro_torch.dist.opt_flags``) on one llama32-3b build
      at full width and depth in bf16: (8a) ``pad_heads``, a 1 x 1024
      prefill whose logits and cache must equal the flag-off run's bit for
@@ -706,7 +711,11 @@ def rwkv6_plain_logits(torch, params, cfg, tokens):
     return L.lm_logits(params["embed"], x, cfg)[0]
 
 
-def zamba2_plain_logits(torch, params, cfg, tokens):
+def zamba2_plain_hidden(torch, params, cfg, tokens, remat: bool = False):
+    """The last layer's output [B, N, d], every scan and shared-block call
+    the plain one; ``remat``: each layer and call activation-checkpointed
+    (the same operations, recomputed in the backward)."""
+    from torch.utils.checkpoint import checkpoint
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.models import mamba2 as MB
@@ -714,15 +723,31 @@ def zamba2_plain_logits(torch, params, cfg, tokens):
     x = L.embed(params["embed"], tokens, cfg)
     positions = torch.arange(N, device=tokens.device)[None]
     shared = _as(cfg, params["shared_attn"])
-    for group in MB._groups(params, cfg):
+
+    def attn_block(x):
         q, k, v = MB._shared_attn_in(shared, x, positions, cfg)
         attn = ref.flash_attention_ref(q, k, v, causal=True)
-        x = x + L.out_project(shared["attn"], attn, cfg)
+        return x + L.out_project(shared["attn"], attn, cfg)
+
+    def mamba_block(x, lp):
+        lp = _as(cfg, lp)
+        xh, dt, A, Bm, Cm, z, _ = MB._mamba_in(lp, x, cfg, None)
+        y, _ = ref.mamba2_ssd_ref(xh, dt, A, Bm, Cm, lp["D"])
+        return x + MB._mamba_out(lp, y, z, cfg)
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat \
+            else fn(*args)
+    for group in MB._groups(params, cfg):
+        x = run(attn_block, x)
         for lp in group:
-            lp = _as(cfg, lp)
-            xh, dt, A, Bm, Cm, z, _ = MB._mamba_in(lp, x, cfg, None)
-            y, _ = ref.mamba2_ssd_ref(xh, dt, A, Bm, Cm, lp["D"])
-            x = x + MB._mamba_out(lp, y, z, cfg)
+            x = run(mamba_block, x, lp)
+    return x
+
+
+def zamba2_plain_logits(torch, params, cfg, tokens):
+    from repro_torch.models import layers as L
+    x = zamba2_plain_hidden(torch, params, cfg, tokens)
     return L.lm_logits(params["embed"], x, cfg)[0]
 
 
@@ -1482,12 +1507,15 @@ def phase_simulator(torch, streams3) -> dict:
 # phase 7: training
 # ----------------------------------------------------------------------
 TRAIN_ARCH = "llama32-3b"        # phase 8's model, and --train's
-TRAIN_ARCHS = ("llama32-3b", "rwkv6-3b")
-# each trained arch's kernels: (forward, backward) launch counters
-TRAIN_KERNELS = {"llama32-3b": ("flash_attention", "flash_attention_backward"),
-                 "rwkv6-3b": ("rwkv6_scan", "rwkv6_scan_backward")}
+TRAIN_ARCHS = ("llama32-3b", "rwkv6-3b", "zamba2-2.7b")
+BACKWARD = ("flash_attention_backward", "rwkv6_scan_backward",
+            "mamba2_ssd_backward")   # the backward kernels' counters
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5
-RESTART_LAYERS, PARITY_TRAIN_LAYERS = 2, 4
+# 7c's and 7d's depths: zamba2's Mamba2 layers run in groups of 6 behind
+# the shared block (none at fewer), so one group for its restart and two
+# (phase 4's) for its f32 step
+RESTART_LAYERS = {"llama32-3b": 2, "rwkv6-3b": 2, "zamba2-2.7b": 6}
+PARITY_TRAIN_LAYERS = {"llama32-3b": 4, "rwkv6-3b": 4, "zamba2-2.7b": 12}
 TRAIN_LR = 1e-3                  # 7d's AdamW step
 GRAD_TOL = 1e-4                  # 7d: grads against each leaf's largest
 NOISE_FLOOR = 3                  # 7d: else x f32's own distance from f64
@@ -1615,13 +1643,31 @@ def flash_backward_kernel(torch) -> dict:
     return row
 
 
+def step_launches(cfg) -> dict:
+    """Each kernel's launches in one train step of ``cfg``: the forward
+    kernels twice a call (the forward and the checkpoint's recompute),
+    their backwards once (flash: one call a layer, or, for the hybrid, a
+    shared-block call every ``shared_attn_every`` layers)."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        calls = {"rwkv6_scan": L}
+    elif cfg.family == "hybrid":
+        calls = {"mamba2_ssd": L,
+                 "flash_attention": L // cfg.hybrid.shared_attn_every}
+    else:
+        calls = {"flash_attention": L}
+    return {**{k: 2 * n for k, n in calls.items()},
+            **{f"{k}_backward": n for k, n in calls.items()}}
+
+
 def train_counts(torch, reset: bool = False) -> dict:
-    """The six launch counts (set to 0 first with ``reset``); the rwkv6
+    """The seven launch counts (set to 0 first with ``reset``); a
     backward's reads 0 in a checkout from before it."""
-    from repro_torch.kernels import flash_prefill, rwkv6_scan
+    from repro_torch.kernels import flash_prefill, mamba2_ssd, rwkv6_scan
     counters = launch_counters()
     backward = {"flash_attention_backward": flash_prefill.flash_attention,
-                "rwkv6_scan_backward": rwkv6_scan.rwkv6_scan}
+                "rwkv6_scan_backward": rwkv6_scan.rwkv6_scan,
+                "mamba2_ssd_backward": mamba2_ssd.mamba2_ssd}
     if reset:
         for fn in counters.values():
             fn.launches = 0
@@ -1642,10 +1688,9 @@ def train_run(torch, label: str, flags: str = "",
     checkout runs it too) and the launch counts set to 0 just before and
     read just after. Logs and returns its losses, step walls, launches
     and peak memory; fails unless every loss is finite and the launches
-    are the arch's forward kernel 2 x L a step (forward and the
-    checkpoint's recompute) and its backward kernel L, no other kernel
-    (TRAIN_KERNELS: flash for llama32-3b, the rwkv6 scan for
-    rwkv6-3b)."""
+    are ``step_launches`` a step, no other kernel (llama32-3b: flash 2 x
+    L and its backward L; rwkv6-3b: the rwkv6 scan's; zamba2-2.7b: the
+    SSD scan's, and flash's per shared-block call)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.models import get_model
@@ -1670,13 +1715,12 @@ def train_run(torch, label: str, flags: str = "",
     wall = time.perf_counter() - t0
     counted = train_counts(torch)
     peak = torch.cuda.max_memory_allocated()
-    fwd, bwd = TRAIN_KERNELS[arch]
     want = {k: 0 for k in counted}
-    want.update({fwd: 2 * L * TRAIN_STEPS, bwd: L * TRAIN_STEPS})
+    want.update({k: n * TRAIN_STEPS for k, n in step_launches(cfg).items()})
     log(f"{label} {arch} train, {L} layers, {n_params / 1e9:.3f} B "
         f"params, bf16, batch {TRAIN_B} x {TRAIN_S}, flags "
         f"[{flags}]: losses {losses}; launches {counted} (want {want}: "
-        f"forward and the checkpoint's recompute, one backward, per layer "
+        f"forward and the checkpoint's recompute, one backward, per call "
         f"and step)")
     require(len(losses) == TRAIN_STEPS and all(
         math.isfinite(x) for x in losses), f"{label} losses {losses}")
@@ -1743,9 +1787,9 @@ def train_full(torch) -> dict:
 
 
 def restart_bit_exact(torch, arch: str) -> None:
-    """7c: ``arch`` at full width, RESTART_LAYERS layers: 4 steps with a
-    checkpoint every 2; then the step-4 checkpoint is set aside and
-    ``train`` runs again from step 2. Steps 3-4 must give the same
+    """7c: ``arch`` at full width, RESTART_LAYERS[arch] layers: 4 steps
+    with a checkpoint every 2; then the step-4 checkpoint is set aside
+    and ``train`` runs again from step 2. Steps 3-4 must give the same
     losses, and step 4 the same params and moments, bit for bit."""
     import shutil
     import tempfile
@@ -1754,7 +1798,7 @@ def restart_bit_exact(torch, arch: str) -> None:
     from repro_torch.dist import fault
     from repro_torch.launch.train import train
     from repro_torch.train.optimizer import tree_leaves
-    cfg = get_config(arch).replace(num_layers=RESTART_LAYERS)
+    cfg = get_config(arch).replace(num_layers=RESTART_LAYERS[arch])
     times = {"save": [], "load": []}
     saved = (fault.save_checkpoint, fault.load_checkpoint)
 
@@ -1787,8 +1831,8 @@ def restart_bit_exact(torch, arch: str) -> None:
                         y.reshape(-1).view(torch.uint8))
             for x, y in zip(tree_leaves((a["params"], a["opt_state"])),
                             tree_leaves((b["params"], b["opt_state"])))]
-    log(f"7c {arch} restart, {RESTART_LAYERS} layers at full width: losses "
-        f"uninterrupted {losses_a}, restarted from step 2 {losses_b}; "
+    log(f"7c {arch} restart, {RESTART_LAYERS[arch]} layers at full width: "
+        f"losses uninterrupted {losses_a}, restarted from step 2 {losses_b}; "
         f"{sum(same)} of {len(same)} params and moments leaves equal bit "
         f"for bit; checkpoint {size / 1e9:.2f} GB in {ckdir} on a {fstype} "
         f"filesystem mounted at {point}; save s "
@@ -1824,7 +1868,19 @@ def rwkv6_plain_loss(torch, params, cfg, batch):
                             batch["targets"])
 
 
-PLAIN_LOSS = {"llama32-3b": dense_plain_loss, "rwkv6-3b": rwkv6_plain_loss}
+def zamba2_plain_loss(torch, params, cfg, batch):
+    """Kernel-free loss: zamba2 with the plain scan and attention, under
+    autograd, each layer checkpointed (the plain scan keeps a state a
+    step: 2.7 GB a layer at batch 2 x 1024 in f32)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    x = zamba2_plain_hidden(torch, params, cfg, batch["tokens"], remat=True)
+    return TF.cross_entropy(L.lm_logits(params["embed"], x, cfg),
+                            batch["targets"])
+
+
+PLAIN_LOSS = {"llama32-3b": dense_plain_loss, "rwkv6-3b": rwkv6_plain_loss,
+              "zamba2-2.7b": zamba2_plain_loss}
 
 
 def leaf_paths(tree, prefix: str = "") -> list:
@@ -1866,9 +1922,9 @@ def in_float64(torch):
 
 def train_parity(torch, arch: str) -> None:
     """7d: one f32 train step of ``arch`` at full width,
-    PARITY_TRAIN_LAYERS layers, TF32 off, with the kernels (remat, the
-    Function) and kernel-free (PLAIN_LOSS: the plain attention or scan,
-    autograd), from the same params and batch, and kernel-free in f64
+    PARITY_TRAIN_LAYERS[arch] layers, TF32 off, with the kernels (remat,
+    the Functions) and kernel-free (PLAIN_LOSS: the plain attention and
+    scans, autograd), from the same params and batch, and kernel-free in f64
     (``in_float64``) as the exact reference. Loss within 2e-4 relative;
     every gradient leaf within GRAD_TOL of its largest magnitude of the
     kernel-free one, or, where f32 itself cannot be held so close (at
@@ -1887,7 +1943,7 @@ def train_parity(torch, arch: str) -> None:
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import adamw, tree_leaves, tree_map
     cfg = get_config(arch).replace(
-        num_layers=PARITY_TRAIN_LAYERS, param_dtype="float32",
+        num_layers=PARITY_TRAIN_LAYERS[arch], param_dtype="float32",
         compute_dtype="float32")
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -1898,11 +1954,14 @@ def train_parity(torch, arch: str) -> None:
     for p in leaves:
         p.requires_grad_(True)
     train_counts(torch, reset=True)
+    # a leaf the loss does not use (zamba2's per-layer ``norm``, as in the
+    # reference) gets a zero gradient, as the train step gives it
+    unused = dict(allow_unused=True, materialize_grads=True)
     loss_k, _ = model.loss(params, batch)
-    grads_k = torch.autograd.grad(loss_k, leaves)
+    grads_k = torch.autograd.grad(loss_k, leaves, **unused)
     counted = train_counts(torch)
     loss_p = PLAIN_LOSS[arch](torch, params, cfg, batch)
-    grads_p = torch.autograd.grad(loss_p, leaves)
+    grads_p = torch.autograd.grad(loss_p, leaves, **unused)
     for p in leaves:
         p.requires_grad_(False)
     params64 = tree_map(lambda t: t.double().requires_grad_(), params)
@@ -1910,14 +1969,15 @@ def train_parity(torch, arch: str) -> None:
         loss_64 = PLAIN_LOSS[arch](torch, params64, cfg, batch)
         require(loss_64.dtype == torch.float64, f"7d {arch} f64 loss is "
                                                 f"{loss_64.dtype}")
-        grads_64 = torch.autograd.grad(loss_64, tree_leaves(params64))
+        grads_64 = torch.autograd.grad(loss_64, tree_leaves(params64),
+                                       **unused)
     del params64
     loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
     rel = abs(loss_k - loss_p) / abs(loss_p)
 
     def dist(a, b):      # largest |a - b| over b's largest magnitude
         return float((a.double() - b.double()).abs().max()
-                     / b.double().abs().max())
+                     / b.double().abs().max().clamp_min(1e-300))
     per_leaf = [(dist(a, b), dist(a, c), dist(b, c), name)
                 for a, b, c, name in zip(grads_k, grads_p, grads_64,
                                          leaf_paths(params))]
@@ -1948,7 +2008,7 @@ def train_parity(torch, arch: str) -> None:
     p_max = max(float(d.max()) for d in diffs)
     flips = sum(int((d > 0.1 * TRAIN_LR).sum()) for d in diffs)
     k_rms64, p_rms64 = (rms(updated[i], updated[2]) for i in (0, 1))
-    log(f"7d {arch} f32 train step, {PARITY_TRAIN_LAYERS} layers at full "
+    log(f"7d {arch} f32 train step, {cfg.num_layers} layers at full "
         f"width: loss kernels {loss_k:.6f}, plain {loss_p:.6f} "
         f"(relative {rel:.2e}, tol 2e-4); grads max |diff| / leaf max "
         f"{grad_err:.2e} (tol {GRAD_TOL}, else {NOISE_FLOOR} x the f32 "
@@ -1962,8 +2022,8 @@ def train_parity(torch, arch: str) -> None:
     require(grad_err <= GRAD_TOL or k64 <= NOISE_FLOOR * p64,
             f"7d {arch} grads differ by {grad_err:.2e}, and from f64 by "
             f"{k64:.2e} against the kernel-free f32's {p64:.2e}")
-    require(counted[TRAIN_KERNELS[arch][1]] == PARITY_TRAIN_LAYERS,
-            f"7d {arch} backward launches {counted}")
+    require(all(counted[k] == n for k, n in step_launches(cfg).items()
+                if k in BACKWARD), f"7d {arch} backward launches {counted}")
     require((p_rms <= 1e-3 * TRAIN_LR or k_rms64 <= NOISE_FLOOR * p_rms64)
             and p_max <= 2.0 * TRAIN_LR,
             f"7d {arch} updated params differ: RMS {p_rms:.2e} (from f64 "
@@ -2101,8 +2161,132 @@ def rwkv6_backward_kernel(torch) -> dict:
     return row
 
 
+def ssd_bwd_cases():
+    # (label, B, T, NH, P, N, carried, steps, skip): the training shape
+    # first (zamba2-2.7b at batch 2 x 1024: no carried state, with D, as
+    # in training); steps None: the model's dt, a softplus ~0.1; "near1":
+    # x 1e-5 (decay ~1); "zeros": a tenth at 200 (A dt < -104: the decay
+    # exactly 0 in f32)
+    yield "train", 2, 1024, 80, 64, 64, False, None, True
+    yield "B1", 1, 1024, 80, 64, 64, False, None, True
+    yield "carried", 2, 1024, 80, 64, 64, True, None, True
+    yield "N16", 2, 1024, 80, 32, 16, True, None, True
+    yield "N128", 2, 1024, 40, 64, 128, True, None, True
+    yield "near1", 2, 1024, 80, 64, 64, True, "near1", True
+    yield "zeros", 2, 1024, 80, 64, 64, True, "zeros", True
+    yield "noD", 2, 1024, 80, 64, 64, True, None, False
+    yield "short", 1, 37, 80, 64, 64, True, None, True
+    yield "one", 1, 1, 80, 64, 64, True, None, True
+
+
+def plain_ssd_grads(torch, ins, dy, ds):
+    """Autograd of the plain scan over every input that is not None: (dx,
+    ddt, dA, dB, dC, dD, dstate), without dD for a D of None."""
+    from repro_torch.kernels import ref
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in ins]
+    return torch.autograd.grad(ref.mamba2_ssd_ref(*leaves),
+                               [t for t in leaves if t is not None],
+                               (dy, ds))
+
+
+def ssd_backward_kernel(torch) -> dict:
+    """7f: the SSD backward kernel against autograd of the plain scan, in
+    bf16 and f32: each gradient within TOL of its largest magnitude (its
+    sums run over up to T states and over the heads, in another order
+    than autograd's), its distance from an f64 autograd beside the plain
+    f32's, two calls bit for bit equal, its time (CUDA events, cold L2),
+    the plain forward + backward's (at the training shape), and the bound
+    (12 operations per (t, h, n, p): G's two updates, S_t and the four
+    sums; each input and gradient moved once). Returns the JSON row
+    (training shape, bf16)."""
+    from repro_torch.kernels import mamba2_ssd
+    import torch.nn.functional as F
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    g = torch.Generator(device="cuda").manual_seed(11)
+    row = None
+    for dtype_name in ("bfloat16", "float32"):
+        dt_ = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        for (label, B, T, NH, P, N, carried, steps,
+             skip) in ssd_bwd_cases():
+            def randn(*shape):
+                return torch.randn(*shape, generator=g, device="cuda")
+            x, dy = (randn(B, T, NH, P).to(dt_) for _ in range(2))
+            dt = F.softplus(randn(B, T, NH) - 2.5)
+            if steps == "near1":
+                dt = 1e-5 * dt
+            elif steps == "zeros":
+                dt = torch.where(torch.rand(dt.shape, generator=g,
+                                            device="cuda") < 0.1,
+                                 torch.full_like(dt, 200.0), dt)
+            A = -torch.linspace(1.0, 16.0, NH, device="cuda")
+            Bm, Cm = (randn(B, T, N).to(dt_) for _ in range(2))
+            D = randn(NH) if skip else None
+            zero = torch.zeros(B, NH, N, P, device="cuda")
+            s0, ds = ((randn(B, NH, N, P), randn(B, NH, N, P))
+                      if carried else (zero, zero))
+            ins = (x, dt, A, Bm, Cm, D, s0)
+
+            def kernel():
+                return mamba2_ssd.mamba2_ssd_backward(*ins, dy, ds)
+            got, again = kernel(), kernel()
+            keep = [i for i, t in enumerate(ins) if t is not None]
+            got, again = [got[i] for i in keep], [again[i] for i in keep]
+            want = plain_ssd_grads(torch, ins, dy, ds)
+            with in_float64(torch):
+                exact = plain_ssd_grads(
+                    torch, [None if t is None else t.double() for t in ins],
+                    dy.double(), ds.double())
+            torch.cuda.synchronize()
+            errs = [max_err(torch, a, b) for a, b in zip(got, want)]
+            scales = [float(b.float().abs().max()) for b in want]
+            # each gradient's distance from the f64 one over its largest:
+            # the kernel's, and the plain f32 autograd's
+            from64 = [[float((a.double() - c).abs().max()
+                             / max(float(c.abs().max()), 1e-300))
+                       for a, c in zip(grads, exact)] for grads in (got, want)]
+            ok = all(e <= tol * max(sc, 1e-30) for e, sc in zip(errs, scales))
+            same = all(same_bits(torch, a, b) for a, b in zip(got, again))
+            ms = cuda_ms(torch, kernel, flush=flush)
+            plain_ms = None
+            if label == "train":
+                plain_ms = cuda_ms(torch, lambda: plain_ssd_grads(
+                    torch, ins, dy, ds), reps=2, warmup=1)
+            flops = 12.0 * B * T * NH * N * P
+            nbytes = nbytes_of(*(t for t in ins if t is not None), dy, ds,
+                               *got)
+            b_ms, b_by = bound(flops, nbytes, dtype_name)
+            names = [n for i, n in enumerate(
+                ("dx", "ddt", "dA", "dB", "dC", "dD", "dstate")) if i in keep]
+            log(f"7f ssd backward {label:7s} {dtype_name:8s} B={B} T={T} "
+                f"NH={NH} P={P} N={N} carried={carried} "
+                f"dt={steps or 'model'} D={skip}: max_abs_err "
+                f"{' '.join(names)} {[f'{e:.3e}' for e in errs]} against "
+                f"largest {[f'{x:.3e}' for x in scales]} (tol {tol} of "
+                f"it); from f64 over its largest: kernel "
+                f"{[f'{x:.2e}' for x in from64[0]]}, plain "
+                f"{[f'{x:.2e}' for x in from64[1]]}; two calls bit for bit "
+                f"{same}; kernel {ms:.4f} ms, plain forward + backward "
+                f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
+                f", bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it")
+            require(ok, f"ssd backward {label} {dtype_name}: errors "
+                        f"{errs} over {tol} of {scales}")
+            require(same, f"ssd backward {label} {dtype_name}: two calls "
+                          f"differ")
+            if label == "train" and dtype_name == "bfloat16":
+                row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            del x, dy, dt, Bm, Cm, D, s0, ds, ins, got, again, want, exact
+    del flush_buf
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_training(torch):
-    """Phase 7: 7a to 7e; returns (7a's and 7e's JSON rows, 7b's runs)."""
+    """Phase 7: 7a to 7f; returns (7a's, 7e's and 7f's JSON rows, 7b's
+    runs)."""
     rows = {"flash_attention_backward": flash_backward_kernel(torch)}
     runs = train_full(torch)
     for arch in TRAIN_ARCHS:
@@ -2110,6 +2294,7 @@ def phase_training(torch):
     for arch in TRAIN_ARCHS:
         train_parity(torch, arch)
     rows["rwkv6_scan_backward"] = rwkv6_backward_kernel(torch)
+    rows["mamba2_ssd_backward"] = ssd_backward_kernel(torch)
     return rows, runs
 
 
@@ -2259,7 +2444,7 @@ def phase_flags(torch, base: dict) -> dict:
     """Phase 8: 8a to 8c; returns the launch counts of its main-path
     runs."""
     counted = flags_serving(torch)
-    counted["flash_attention_backward"] = counted["rwkv6_scan_backward"] = 0
+    counted.update({k: 0 for k in BACKWARD})
     for k, n in flags_training(torch, base).items():
         counted[k] += n
     return counted
@@ -2563,7 +2748,7 @@ def main() -> int:
     t0 = time.perf_counter()
     trained_rows, trained = phase_training(torch)
     rows.update(trained_rows)
-    counted["flash_attention_backward"] = counted["rwkv6_scan_backward"] = 0
+    counted.update({k: 0 for k in BACKWARD})
     for run in trained.values():
         for k, n in run["counted"].items():
             counted[k] += n
@@ -2590,6 +2775,10 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/rwkv6_backward.cu",
             "src/repro/kernels/ref.py:81 (jax.value_and_grad over "
             "rwkv6_scan_ref; no Pallas backward)"),
+        "mamba2_ssd_backward": (
+            "src/repro_torch/kernels/csrc/mamba2_ssd_backward.cu",
+            "src/repro/kernels/ref.py:119 (jax.value_and_grad over "
+            "mamba2_ssd_ref; no Pallas backward)"),
     }
     kernels = []
     for name, (source, replaces) in info.items():

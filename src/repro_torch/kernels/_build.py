@@ -21,7 +21,7 @@ from typing import Callable, Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("flash_prefill", "flash_backward", "paged_decode", "rwkv6_scan",
-           "rwkv6_backward", "mamba2_ssd")
+           "rwkv6_backward", "mamba2_ssd", "mamba2_ssd_backward")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

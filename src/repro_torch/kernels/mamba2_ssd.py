@@ -1,17 +1,26 @@
-"""Mamba2 SSD scan for prefill: the CUDA kernel's wrapper and its plain
-torch version.
+"""Mamba2 SSD scan for prefill and training: the CUDA kernels' wrappers
+and their plain torch version.
 
 zamba2-2.7b's backbone runs this recurrence in each of its 54 Mamba2
 layers at prefill; the final states are the fixed-size part of its
-handoff to decode. The kernel (``csrc/mamba2_ssd.cu``) replaces the
-Pallas TPU kernel ``repro/kernels/mamba2_ssd.py::_ssd_kernel``; its
-header says what bounds it on the H100 and how it is laid out. For bf16
-at zamba2's shape (N 64, P a multiple of 64) it runs the chunked SSD
-form on the tensor cores in chunks of its own (64 steps, whatever chunk
-the caller pads to); f32 and other shapes scan step by step. Both mask
-their ragged tail, so it takes any T. One call is one launch. The
-wrapper takes the plain version only for CPU tensors; for a CUDA tensor
-it launches the kernel or raises.
+handoff to decode. The forward kernel (``csrc/mamba2_ssd.cu``) replaces
+the Pallas TPU kernel ``repro/kernels/mamba2_ssd.py::_ssd_kernel``. For
+bf16 at zamba2's shape (N 64, P a multiple of 64) it runs the chunked
+SSD form on the tensor cores in chunks of its own (64 steps, whatever
+chunk the caller pads to); f32 and other shapes scan step by step. Both
+mask their ragged tail, so it takes any T. One call is one launch. The
+backward kernel (``csrc/mamba2_ssd_backward.cu``) has no Pallas
+counterpart: the reference trains through ``jax.value_and_grad`` of the
+plain version. Each header says what bounds the kernel on the H100 and
+how it is laid out.
+
+The wrappers take the plain version only for CPU tensors (autograd
+differentiates it there); for a CUDA tensor they launch a kernel or
+raise. ``mamba2_ssd`` goes through the ``Mamba2SSD`` autograd Function
+(the forward kernel, then the backward kernel) only when grad is enabled
+and an input requires it; otherwise it launches the forward kernel
+alone, as serving does. ``mamba2_ssd.launches`` counts the forward
+kernel's launches, ``mamba2_ssd.backward_launches`` the backward's.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .flash_prefill import _DTYPES, no_backward
+from .flash_prefill import _DTYPES
 from .ref import mamba2_ssd_ref as plain
 
 STATE_DIMS = (16, 32, 64, 128)
@@ -30,6 +39,12 @@ COLS = 16          # state columns per block: P must be a multiple
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
              *[_ll] * 10, _p]
+_BWD_ARGTYPES = [_i, _i, *[_p] * 22, _i, _i, _i, _i, *[_ll] * 10, _p]
+# the backward kernel's block: a thread a state row (at least a warp), and
+# a sub-chunk of steps whose states fill 32 KB of shared memory
+# (csrc/mamba2_ssd_backward.cu, kHistBytes)
+BWD_ROWS = {n: max(n, 32) for n in STATE_DIMS}
+SUB_CHUNK = {n: 32768 // (BWD_ROWS[n] * COLS * 4) for n in STATE_DIMS}
 
 
 def _check(x, dt, A, B_mat, C_mat, D, state):
@@ -76,7 +91,6 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return plain(x, dt, A, B_mat, C_mat, D, state)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_ssd: no kernel for {x.device}")
-    no_backward("mamba2_ssd", x, dt, A, B_mat, C_mat, D, state)
     Bsz, T, NH, P = x.shape
     N = B_mat.shape[-1]
     if state is None:
@@ -84,7 +98,16 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             device=x.device)
     if D is None:
         D = torch.zeros(NH, dtype=torch.float32, device=x.device)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_mat, C_mat, D, state)):
+        return Mamba2SSD.apply(x, dt, A, B_mat, C_mat, D, state)
+    return _forward(x, dt, A, B_mat, C_mat, D, state)
+
+
+def _forward(x, dt, A, B_mat, C_mat, D, state):
     _check(x, dt, A, B_mat, C_mat, D, state)
+    Bsz, T, NH, P = x.shape
+    N = B_mat.shape[-1]
     state = state.contiguous()
     A32, D32 = A.float().contiguous(), D.float().contiguous()  # [NH] each
     y = torch.empty((Bsz, T, NH, P), dtype=x.dtype, device=x.device)
@@ -104,4 +127,96 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, s_out
 
 
+def mamba2_ssd_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B_mat: torch.Tensor, C_mat: torch.Tensor,
+                        D: Optional[torch.Tensor],
+                        state: Optional[torch.Tensor], dy: torch.Tensor,
+                        ds_out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dB, dC, dD, dstate) of ``mamba2_ssd(x, dt, A, B_mat,
+    C_mat, D, state)`` for the gradients ``dy`` of y and ``ds_out`` of the
+    final state (default zeros): dx, dB and dC in x's dtype, ddt and
+    dstate f32, dA and dD in A's and D's dtypes (a D of None is taken as
+    zeros, f32, and dD is the gradient there). On CPU tensors: autograd
+    of the plain version."""
+    Bsz, T, NH, P = x.shape
+    N = B_mat.shape[-1]
+    if state is None:
+        state = torch.zeros((Bsz, NH, N, P), dtype=torch.float32,
+                            device=x.device)
+    if D is None:
+        D = torch.zeros(NH, dtype=torch.float32, device=x.device)
+    if ds_out is None:
+        ds_out = torch.zeros_like(state, dtype=torch.float32)
+    if x.device.type == "cpu":
+        ins = [t.detach().requires_grad_()
+               for t in (x, dt, A, B_mat, C_mat, D, state)]
+        with torch.enable_grad():
+            outs = plain(*ins)
+            grads = torch.autograd.grad(outs, ins, (dy, ds_out),
+                                        allow_unused=True)
+        return tuple(torch.zeros_like(t) if g is None else g
+                     for t, g in zip(ins, grads))
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd: no kernel for {x.device}")
+    _check(x, dt, A, B_mat, C_mat, D, state)
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            ds_out.shape != state.shape or ds_out.dtype != torch.float32:
+        raise ValueError(f"mamba2_ssd backward: dy must be {x.dtype} "
+                         f"{tuple(x.shape)} and ds_out float32 "
+                         f"{tuple(state.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}, {ds_out.dtype} "
+                         f"{tuple(ds_out.shape)}")
+    if Bsz * T * NH * P == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt),
+                torch.zeros_like(A), torch.zeros_like(B_mat),
+                torch.zeros_like(C_mat), torch.zeros_like(D), ds_out.clone())
+    dy, state, ds_out = (t.contiguous() for t in (dy, state, ds_out))
+    A32, D32 = A.float().contiguous(), D.float().contiguous()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((Bsz, T, NH, P), dtype=x.dtype, device=dev)
+    dB, dC = (torch.empty((Bsz, T, N), dtype=x.dtype, device=dev)
+              for _ in range(2))
+    ddt = torch.empty((Bsz, T, NH), **f32)
+    dA, dD = (torch.empty(NH, **f32) for _ in range(2))
+    dstate = torch.empty_like(state)
+    ns = P // COLS
+    # each block's kept states (one every sub-chunk), and its partials of
+    # the sums across blocks
+    states = torch.empty(Bsz * NH * ns * -(-T // SUB_CHUNK[N]) * BWD_ROWS[N]
+                         * COLS, **f32)
+    dB_part, dC_part = (torch.empty((Bsz, NH, ns, T, N), **f32)
+                        for _ in range(2))
+    ddt_part = torch.empty((Bsz, NH, ns, T), **f32)
+    dA_part, dD_part = (torch.empty((Bsz, NH, ns), **f32) for _ in range(2))
+    launch = _build.launcher("mamba2_ssd_backward", "mamba2_ssd_bwd",
+                             _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch(_DTYPES[x.dtype], N, *(t.data_ptr() for t in (
+            x, dt, A32, B_mat, C_mat, D32, state, dy, ds_out, dx, ddt, dA,
+            dB, dC, dD, dstate, states, dB_part, dC_part, ddt_part, dA_part,
+            dD_part)), Bsz, T, NH, P, *x.stride()[:3], *dt.stride(),
+            B_mat.stride(0), B_mat.stride(1), C_mat.stride(0),
+            C_mat.stride(1), stream)
+    mamba2_ssd.backward_launches += 1
+    return dx, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype), dstate
+
+
+class Mamba2SSD(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_mat, C_mat, D, state):
+        y, s_out = _forward(x, dt, A, B_mat, C_mat, D, state)
+        ctx.save_for_backward(x, dt, A, B_mat, C_mat, D, state)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds_out):
+        return mamba2_ssd_backward(*ctx.saved_tensors, dy, ds_out)
+
+
 mamba2_ssd.launches = 0
+mamba2_ssd.backward_launches = 0

@@ -16,8 +16,8 @@ latest checkpoint and go on from it. The step is built on
 no process group. Perf flags come from ``REPRO_OPT`` (e.g.
 ``REPRO_OPT=remat_dots,bf16_logits``; ``dist/opt_flags.py``). rwkv6-3b
 trains on the card through the rwkv6 scan's forward and backward kernels
-(``--full --arch rwkv6-3b``); the SSD scan kernel has no backward yet,
-so the hybrid family trains on the CPU only.
+(``--full --arch rwkv6-3b``), zamba2-2.7b through the SSD scan's and
+flash's (``--full --arch zamba2-2.7b``).
 """
 from __future__ import annotations
 

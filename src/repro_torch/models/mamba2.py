@@ -281,8 +281,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: bool = True):
-    """Differentiable on the CPU only: the SSD kernel has no backward
-    yet, and raises under grad on the card."""
+    """Differentiable on both devices: on the card the SSD scan trains
+    through its forward and backward kernels (``Mamba2SSD``), the shared
+    block through flash's."""
     logits = forward(params, batch["tokens"], cfg, remat=remat)
     return TF.cross_entropy(logits, batch["targets"], batch.get("mask")), {}
 

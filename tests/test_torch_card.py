@@ -1,8 +1,10 @@
 """The CUDA kernels on the card: each against its plain torch version
-(flash's and the rwkv6 scan's backward through autograd), the kernels
-without a backward raising under grad, a train step and the reduced models' prefill +
-decode on the card against the same on the CPU. They skip without a card (the kernels have no CPU mode). This file imports neither jax nor the reference, so it also runs
-on a machine that has only torch:
+(flash's, the rwkv6 scan's and the SSD scan's backward through
+autograd), the paged kernel raising under grad, a train step and the
+reduced models' prefill + decode on the card against the same on the
+CPU. They skip without a card (the kernels have no CPU mode). This file
+imports neither jax nor the reference, so it also runs on a machine
+that has only torch:
 
   python -m pytest --noconftest -q tests/test_torch_card.py
 """
@@ -504,12 +506,20 @@ def test_flash_backward_is_deterministic(card):
 
 
 def test_kernels_without_backward_raise_under_grad(card):
+    """The paged kernel has no backward and raises under grad; the SSD
+    scan, which had none before, now trains: its Function launches the
+    backward kernel and gives finite grads, in the kernel and in the
+    reduced zamba2 model's loss."""
     x = torch.randn(1, 64, 2, 64, generator=card, device="cuda",
                     requires_grad=True)
     dt = torch.rand(1, 64, 2, generator=card, device="cuda")
     Bm = torch.randn(1, 64, 64, generator=card, device="cuda")
-    with pytest.raises(RuntimeError, match="mamba2_ssd: .*no backward"):
-        mamba2_ssd.mamba2_ssd(x, dt, -torch.ones(2, device="cuda"), Bm, Bm)
+    bwd = mamba2_ssd.mamba2_ssd.backward_launches
+    y, _ = mamba2_ssd.mamba2_ssd(x, dt, -torch.ones(2, device="cuda"), Bm,
+                                 Bm)
+    (gx,) = torch.autograd.grad(y.square().sum(), x)
+    assert torch.isfinite(gx).all() and gx.abs().max() > 0
+    assert mamba2_ssd.mamba2_ssd.backward_launches == bwd + 1
     q = torch.randn(2, 4, 64, generator=card, device="cuda",
                     requires_grad=True)
     pages = torch.randn(4, 16, 2, 64, generator=card, device="cuda")
@@ -522,12 +532,100 @@ def test_kernels_without_backward_raise_under_grad(card):
     cfg = configs.reduce_for_smoke(configs.REGISTRY["zamba2-2.7b"])
     model = get_model(cfg)
     params = model.init(card, "cuda")
-    for p in tree_leaves(params):
+    leaves = tree_leaves(params)
+    for p in leaves:
         p.requires_grad_(True)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=card,
                          device="cuda")
-    with pytest.raises(RuntimeError, match="mamba2_ssd: .*no backward"):
-        model.loss(params, {"tokens": toks, "targets": toks})
+    bwd = mamba2_ssd.mamba2_ssd.backward_launches
+    loss, _ = model.loss(params, {"tokens": toks, "targets": toks})
+    # each layer's ``norm`` is unused, as in the reference: a zero grad
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    assert mamba2_ssd.mamba2_ssd.backward_launches == bwd + cfg.num_layers
+
+
+# ----------------------------------------------------------------------
+# the Mamba2 SSD backward kernel
+# ----------------------------------------------------------------------
+def _ssd_case(card, B, T, NH, P, N, dtype, dt_kind="model"):
+    """x, dt, A, B_mat, C_mat, D like the model's: dt a softplus ~0.1,
+    or tiny (decay ~1), or with a tenth at 200 (decay exactly 0)."""
+    x = _rand(card, (B, T, NH, P)).to(dtype)
+    dt = torch.nn.functional.softplus(_rand(card, (B, T, NH)) - 2.5)
+    if dt_kind == "near1":
+        dt = 1e-5 * dt
+    elif dt_kind == "zero":
+        mask = torch.rand(dt.shape, generator=card, device="cuda") < 0.1
+        dt = torch.where(mask, torch.full_like(dt, 200.0), dt)
+    A = -torch.linspace(1.0, 16.0, NH, device="cuda")
+    Bm, Cm = (_rand(card, (B, T, N)).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm, _rand(card, (NH,))
+
+
+def _ssd_grads(fn, ins, dy, ds):
+    """Autograd of ``fn`` (the kernel's Function or the plain scan) over
+    every input that is not None."""
+    leaves = [None if t is None else t.clone().requires_grad_()
+              for t in ins]
+    return torch.autograd.grad(fn(*leaves), [t for t in leaves
+                                             if t is not None], (dy, ds))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,NH,P,N,dt_kind,skip", [
+    (2, 1024, 80, 64, 64, "model", True),   # zamba2-2.7b's training shape
+    (1, 300, 4, 64, 64, "model", True),     # B = 1
+    (2, 77, 3, 32, 16, "model", False),     # the smoke config's N, P; no D
+    (2, 130, 2, 64, 128, "near1", True),    # N 128, decays near 1
+    (1, 100, 4, 64, 32, "zero", True),      # decays exactly 0
+    (1, 37, 4, 64, 64, "model", True),      # T < a chunk
+    (2, 1, 4, 64, 64, "model", True),       # a single step
+])
+def test_mamba2_backward_kernel_matches_plain(card, dtype, B, T, NH, P, N,
+                                             dt_kind, skip):
+    """The gradients through the Mamba2SSD Function (forward and backward
+    kernels), from a carried state with a nonzero d(final state),
+    against autograd of the plain version: each within the dtype's
+    tolerance of its largest magnitude."""
+    x, dt, A, Bm, Cm, D = _ssd_case(card, B, T, NH, P, N, dtype, dt_kind)
+    s0 = _rand(card, (B, NH, N, P))
+    dy = _rand(card, (B, T, NH, P)).to(dtype)
+    ds = _rand(card, (B, NH, N, P))
+    ins = (x, dt, A, Bm, Cm, D if skip else None, s0)
+    fwd, bwd = (mamba2_ssd.mamba2_ssd.launches,
+                mamba2_ssd.mamba2_ssd.backward_launches)
+    got = _ssd_grads(mamba2_ssd.mamba2_ssd, ins, dy, ds)
+    assert (mamba2_ssd.mamba2_ssd.launches,
+            mamba2_ssd.mamba2_ssd.backward_launches) == (fwd + 1, bwd + 1)
+    want = _ssd_grads(ref.mamba2_ssd_ref, ins, dy, ds)
+    assert len(got) == len(want) == 6 + skip
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all()
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_backward_is_deterministic(card, dtype):
+    """Two calls give the same bits (no atomics); under torch.no_grad the
+    scan launches its forward kernel alone."""
+    B, T, NH, P, N = 2, 300, 8, 64, 64
+    x, dt, A, Bm, Cm, D = _ssd_case(card, B, T, NH, P, N, dtype)
+    s0, ds = (_rand(card, (B, NH, N, P)) for _ in range(2))
+    dy = _rand(card, (B, T, NH, P)).to(dtype)
+    a = mamba2_ssd.mamba2_ssd_backward(x, dt, A, Bm, Cm, D, s0, dy, ds)
+    b = mamba2_ssd.mamba2_ssd_backward(x, dt, A, Bm, Cm, D, s0, dy, ds)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    bwd = mamba2_ssd.mamba2_ssd.backward_launches
+    with torch.no_grad():
+        y, _ = mamba2_ssd.mamba2_ssd(x.requires_grad_(), dt, A, Bm, Cm, D,
+                                     s0)
+    assert not y.requires_grad
+    assert mamba2_ssd.mamba2_ssd.backward_launches == bwd
 
 
 # ----------------------------------------------------------------------
@@ -594,12 +692,13 @@ def test_rwkv6_backward_is_deterministic(card, dtype):
     assert rwkv6_scan.rwkv6_scan.backward_launches == bwd
 
 
-@pytest.mark.parametrize("arch", ["llama32-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama32-3b", "rwkv6-3b", "zamba2-2.7b"])
 def test_train_step_on_card_matches_cpu(card, arch):
     """Two f32 steps of the reduced model's train step (llama: the flash
-    forward and backward kernels on the card; rwkv6: the scan's) from the
-    same params and batches as on the CPU: the same losses within 2e-4
-    (the second one after an update)."""
+    forward and backward kernels on the card; rwkv6: the scan's; zamba2:
+    the SSD scan's and flash's) from the same params and batches as on
+    the CPU: the same losses within 2e-4 (the second one after an
+    update)."""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve.steps import build_train_step
@@ -608,8 +707,10 @@ def test_train_step_on_card_matches_cpu(card, arch):
     cfg = configs.reduce_for_smoke(configs.REGISTRY[arch])
     params = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     out = {}
-    bwd = (flash_prefill.flash_attention.backward_launches,
-           rwkv6_scan.rwkv6_scan.backward_launches)
+    kernels = {"flash": flash_prefill.flash_attention,
+               "rwkv6": rwkv6_scan.rwkv6_scan,
+               "ssd": mamba2_ssd.mamba2_ssd}
+    bwd = {k: fn.backward_launches for k, fn in kernels.items()}
     for dev in ("cuda", "cpu"):
         opt = adamw(1e-3)
         step = build_train_step(cfg, make_host_mesh(device_type=dev),
@@ -622,9 +723,14 @@ def test_train_step_on_card_matches_cpu(card, arch):
             losses.append(loss.cpu())
         out[dev] = torch.stack(losses)
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=0, rtol=2e-4)
-    launched = (flash_prefill.flash_attention.backward_launches - bwd[0],
-                rwkv6_scan.rwkv6_scan.backward_launches - bwd[1])
-    assert launched[arch == "rwkv6-3b"] == 2 * cfg.num_layers
+    launched = {k: fn.backward_launches - bwd[k]
+                for k, fn in kernels.items()}
+    L, want = cfg.num_layers, {"flash": 0, "rwkv6": 0, "ssd": 0}
+    if arch == "zamba2-2.7b":      # a shared-block call every few layers
+        want.update(flash=L // cfg.hybrid.shared_attn_every, ssd=L)
+    else:
+        want[{"llama32-3b": "flash", "rwkv6-3b": "rwkv6"}[arch]] = L
+    assert launched == {k: 2 * n for k, n in want.items()}
 
 
 # ----------------------------------------------------------------------
