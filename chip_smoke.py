@@ -110,7 +110,11 @@ Phases, each fatal on failure (the script exits non-zero):
      bound; (7f) the SSD backward kernel likewise in bf16 and f32 at
      zamba2-2.7b's training shape ([2,1024,80,64], N 64), B = 1, a
      carried state with a nonzero d(final state), N 16 at P 32 and N
-     128, decays near 1 and exactly 0, no D, T 37 and T 1;
+     128, decays near 1 and exactly 0, no D, T 37 and T 1, each line
+     naming its route (bf16 at N 64 chunked on the tensor cores, the
+     rest the step kernel; the chunked route's counter must move with
+     it), and each route's resident blocks an SM; 7b requires every one
+     of zamba2-2.7b's SSD backward launches on the chunked route;
   8. perf flags (``repro_torch.dist.opt_flags``) on one llama32-3b build
      at full width and depth in bf16: (8a) ``pad_heads``, a 1 x 1024
      prefill whose logits and cache must equal the flag-off run's bit for
@@ -130,16 +134,16 @@ before its last line, which is
 
   python3 chip_smoke.py            # from the repository root
 
-Four diagnostics, which print their JSON line and the card instead:
+Five diagnostics, which print their JSON line and the card instead:
 ``--windows DIR`` times phase 3's prefill and decode step, store and
 fetch per medium (and the flash wrapper's host time, and the paged
 kernel at five shapes) of the
 checkout at DIR, so that two checkouts are compared in one call with one
 yardstick; ``--train DIR`` runs phase 7b's training of the checkout at
-DIR (its losses, step walls and launches); ``--flash-ablation`` and
-``--rwkv6-ablation`` time the bf16
-flash kernel or the chunked rwkv6 kernel built with one part switched
-off at a time.
+DIR (its losses, step walls and launches); ``--flash-ablation``,
+``--rwkv6-ablation`` and ``--ssd-backward-ablation`` time the bf16
+flash kernel, the chunked rwkv6 kernel or the chunked SSD backward's
+walk built with one part switched off at a time.
 """
 from __future__ import annotations
 
@@ -1656,13 +1660,17 @@ def step_launches(cfg) -> dict:
                  "flash_attention": L // cfg.hybrid.shared_attn_every}
     else:
         calls = {"flash_attention": L}
-    return {**{k: 2 * n for k, n in calls.items()},
-            **{f"{k}_backward": n for k, n in calls.items()}}
+    got = {**{k: 2 * n for k, n in calls.items()},
+           **{f"{k}_backward": n for k, n in calls.items()}}
+    if "mamba2_ssd" in calls:    # every backward on the chunked route
+        got["mamba2_ssd_backward_chunked"] = calls["mamba2_ssd"]
+    return got
 
 
 def train_counts(torch, reset: bool = False) -> dict:
-    """The seven launch counts (set to 0 first with ``reset``); a
-    backward's reads 0 in a checkout from before it."""
+    """The seven launch counts and the SSD backward's chunked route's
+    (set to 0 first with ``reset``); a backward's reads 0 in a checkout
+    from before it, and the chunked route's is left out there."""
     from repro_torch.kernels import flash_prefill, mamba2_ssd, rwkv6_scan
     counters = launch_counters()
     backward = {"flash_attention_backward": flash_prefill.flash_attention,
@@ -1676,6 +1684,11 @@ def train_counts(torch, reset: bool = False) -> dict:
     got = {k: fn.launches for k, fn in counters.items()}
     for k, fn in backward.items():
         got[k] = getattr(fn, "backward_launches", 0)
+    ssd = mamba2_ssd.mamba2_ssd
+    if hasattr(ssd, "backward_chunked_launches"):
+        if reset:
+            ssd.backward_chunked_launches = 0
+        got["mamba2_ssd_backward_chunked"] = ssd.backward_chunked_launches
     return got
 
 
@@ -1716,7 +1729,8 @@ def train_run(torch, label: str, flags: str = "",
     counted = train_counts(torch)
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in counted}
-    want.update({k: n * TRAIN_STEPS for k, n in step_launches(cfg).items()})
+    want.update({k: n * TRAIN_STEPS for k, n in step_launches(cfg).items()
+                 if k in counted})
     log(f"{label} {arch} train, {L} layers, {n_params / 1e9:.3f} B "
         f"params, bf16, batch {TRAIN_B} x {TRAIN_S}, flags "
         f"[{flags}]: losses {losses}; launches {counted} (want {want}: "
@@ -2024,6 +2038,8 @@ def train_parity(torch, arch: str) -> None:
             f"{k64:.2e} against the kernel-free f32's {p64:.2e}")
     require(all(counted[k] == n for k, n in step_launches(cfg).items()
                 if k in BACKWARD), f"7d {arch} backward launches {counted}")
+    require(counted.get("mamba2_ssd_backward_chunked", 0) == 0,
+            f"7d {arch}: f32 took the chunked SSD backward ({counted})")
     require((p_rms <= 1e-3 * TRAIN_LR or k_rms64 <= NOISE_FLOOR * p_rms64)
             and p_max <= 2.0 * TRAIN_LR,
             f"7d {arch} updated params differ: RMS {p_rms:.2e} (from f64 "
@@ -2206,6 +2222,12 @@ def ssd_backward_kernel(torch) -> dict:
     flush = flush_buf.zero_
     g = torch.Generator(device="cuda").manual_seed(11)
     row = None
+    occ = mamba2_ssd.backward_occupancy()
+    log(f"7f ssd backward, resident blocks an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, N 64, bf16): step "
+        f"kernel {occ['step']} (64 threads), chunked route's state launch "
+        f"{occ['chunked_states']} (128 threads), its walk "
+        f"{occ['chunked_walk']} (256 threads)")
     for dtype_name in ("bfloat16", "float32"):
         dt_ = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
@@ -2228,10 +2250,16 @@ def ssd_backward_kernel(torch) -> dict:
             s0, ds = ((randn(B, NH, N, P), randn(B, NH, N, P))
                       if carried else (zero, zero))
             ins = (x, dt, A, Bm, Cm, D, s0)
+            route = mamba2_ssd.backward_kernel_for(x, Bm, Cm, dy)
 
             def kernel():
                 return mamba2_ssd.mamba2_ssd_backward(*ins, dy, ds)
+            chunked = mamba2_ssd.mamba2_ssd.backward_chunked_launches
             got, again = kernel(), kernel()
+            require(mamba2_ssd.mamba2_ssd.backward_chunked_launches
+                    == chunked + 2 * (route == "chunked"),
+                    f"ssd backward {label} {dtype_name}: route {route} not "
+                    f"taken")
             keep = [i for i, t in enumerate(ins) if t is not None]
             got, again = [got[i] for i in keep], [again[i] for i in keep]
             want = plain_ssd_grads(torch, ins, dy, ds)
@@ -2262,7 +2290,7 @@ def ssd_backward_kernel(torch) -> dict:
                 ("dx", "ddt", "dA", "dB", "dC", "dD", "dstate")) if i in keep]
             log(f"7f ssd backward {label:7s} {dtype_name:8s} B={B} T={T} "
                 f"NH={NH} P={P} N={N} carried={carried} "
-                f"dt={steps or 'model'} D={skip}: max_abs_err "
+                f"dt={steps or 'model'} D={skip}, route {route}: max_abs_err "
                 f"{' '.join(names)} {[f'{e:.3e}' for e in errs]} against "
                 f"largest {[f'{x:.3e}' for x in scales]} (tol {tol} of "
                 f"it); from f64 over its largest: kernel "
@@ -2277,7 +2305,10 @@ def ssd_backward_kernel(torch) -> dict:
                           f"differ")
             if label == "train" and dtype_name == "bfloat16":
                 row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           design=f"{route}: bf16 at N 64 on mma.sync (f32 "
+                                  f"and other shapes step by step on the "
+                                  f"CUDA cores)")
             del x, dy, dt, Bm, Cm, D, s0, ds, ins, got, again, want, exact
     del flush_buf
     torch.cuda.empty_cache()
@@ -2446,7 +2477,7 @@ def phase_flags(torch, base: dict) -> dict:
     counted = flags_serving(torch)
     counted.update({k: 0 for k in BACKWARD})
     for k, n in flags_training(torch, base).items():
-        counted[k] += n
+        counted[k] = counted.get(k, 0) + n
     return counted
 
 
@@ -2555,6 +2586,9 @@ ABLATIONS = {   # kernel: (source, macro, {value: the part switched off})
     "rwkv6": ("rwkv6_scan", "RWKV6_ABLATE", {
         1: "A tiles off", 2: "operand pass off", 3: "products off",
         4: "logarithms off"}),
+    "ssd_backward": ("mamba2_ssd_backward", "SSD_BWD_ABLATE", {
+        1: "chunk-start state off", 2: "dL scan off", 3: "K, E tiles off",
+        4: "G products off", 5: "stores off"}),
 }
 
 
@@ -2670,6 +2704,56 @@ def rwkv6_ablation(torch) -> dict:
     return out
 
 
+def ssd_backward_ablation(torch) -> dict:
+    """``--ssd-backward-ablation``: the chunked SSD backward as built and
+    with its walk built with SSD_BWD_ABLATE = 1..5, each of which
+    switches one part of the walk off (its output is then wrong), timed
+    (all three launches) at zamba2-2.7b's training shape and at B = 1:
+    what each part costs the kernel."""
+    from repro_torch.kernels import _build, mamba2_ssd
+    import torch.nn.functional as F
+    name, symbol = "mamba2_ssd_backward", "mamba2_ssd_bwd_chunked"
+    libs = ablated_builds("ssd_backward")
+    for lib in libs.values():
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for label, B in (("train", 2), ("B1", 1)):
+        T, NH, P, N = TRAIN_S, 80, 64, 64
+        x, dy = (torch.randn(B, T, NH, P, generator=g, device="cuda")
+                 .bfloat16() for _ in range(2))
+        dt = F.softplus(torch.randn(B, T, NH, generator=g, device="cuda")
+                        - 2.5)
+        A = -torch.linspace(1.0, 16.0, NH, device="cuda")
+        Bm, Cm = (torch.randn(B, T, N, generator=g, device="cuda")
+                  .bfloat16() for _ in range(2))
+        D = torch.randn(NH, generator=g, device="cuda")
+        s0 = torch.zeros(B, NH, N, P, device="cuda")
+
+        def kernel():
+            return mamba2_ssd.mamba2_ssd_backward(x, dt, A, Bm, Cm, D, s0,
+                                                  dy, s0)
+        t = {"as built": cuda_ms(torch, kernel, flush=flush)}
+        built = _build.load(name)
+        for n, what in ABLATIONS["ssd_backward"][2].items():
+            # the wrapper binds the ablated library's entry, then the
+            # built one's again
+            _build._libs[name] = libs[n]
+            _build._launchers.pop(symbol, None)
+            try:
+                t[what] = cuda_ms(torch, kernel, flush=flush)
+            finally:
+                _build._libs[name] = built
+                _build._launchers.pop(symbol, None)
+        out[label] = t
+        log(f"ssd backward ablation {label} (B={B} T={T} NH={NH} P={P} "
+            f"N={N}, chunked): " + ", ".join(f"{w} {ms:.4f} ms"
+                                             for w, ms in t.items()))
+    return out
+
+
 # ----------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2684,6 +2768,9 @@ def main() -> int:
     ap.add_argument("--rwkv6-ablation", action="store_true",
                     help="only time the chunked rwkv6 kernel with parts "
                          "switched off")
+    ap.add_argument("--ssd-backward-ablation", action="store_true",
+                    help="only time the chunked SSD backward with parts of "
+                         "its walk switched off")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2714,7 +2801,9 @@ def main() -> int:
     diagnostic = (windows_only if args.windows is not None else
                   train_only if args.train is not None else
                   flash_ablation if args.flash_ablation else
-                  rwkv6_ablation if args.rwkv6_ablation else None)
+                  rwkv6_ablation if args.rwkv6_ablation else
+                  ssd_backward_ablation if args.ssd_backward_ablation
+                  else None)
     if diagnostic is not None:
         fn = diagnostic
         print(json.dumps({"tree": str(src.parent), fn.__name__: fn(torch)}))
@@ -2751,11 +2840,11 @@ def main() -> int:
     counted.update({k: 0 for k in BACKWARD})
     for run in trained.values():
         for k, n in run["counted"].items():
-            counted[k] += n
+            counted[k] = counted.get(k, 0) + n
     log(f"phase 7 (training): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for k, n in phase_flags(torch, trained[TRAIN_ARCH]).items():
-        counted[k] += n
+        counted[k] = counted.get(k, 0) + n
     log(f"phase 8 (perf flags): {time.perf_counter() - t0:.1f} s")
 
     info = {

@@ -9,10 +9,15 @@ bf16 at zamba2's shape (N 64, P a multiple of 64) it runs the chunked
 SSD form on the tensor cores in chunks of its own (64 steps, whatever
 chunk the caller pads to); f32 and other shapes scan step by step. Both
 mask their ragged tail, so it takes any T. One call is one launch. The
-backward kernel (``csrc/mamba2_ssd_backward.cu``) has no Pallas
+backward kernels (``csrc/mamba2_ssd_backward.cu``) have no Pallas
 counterpart: the reference trains through ``jax.value_and_grad`` of the
-plain version. Each header says what bounds the kernel on the H100 and
-how it is laid out.
+plain version. The backward takes the same split as the forward: bf16
+at N 64 with P a multiple of 64 and 16-byte aligned x, B, C and dy runs
+the chunked form on the tensor cores (three launches: the chunk-start
+states, a reverse walk over the chunks, the sums across blocks); f32
+and every other shape run the step kernel (two launches).
+``backward_kernel_for`` says which, from the tensors alone. Each header
+says what bounds the kernel on the H100 and how it is laid out.
 
 The wrappers take the plain version only for CPU tensors (autograd
 differentiates it there); for a CUDA tensor they launch a kernel or
@@ -20,7 +25,9 @@ raise. ``mamba2_ssd`` goes through the ``Mamba2SSD`` autograd Function
 (the forward kernel, then the backward kernel) only when grad is enabled
 and an input requires it; otherwise it launches the forward kernel
 alone, as serving does. ``mamba2_ssd.launches`` counts the forward
-kernel's launches, ``mamba2_ssd.backward_launches`` the backward's.
+kernel's launches, ``mamba2_ssd.backward_launches`` the backward's (both
+routes), ``mamba2_ssd.backward_chunked_launches`` those of the chunked
+route.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 from . import _build
 from .flash_prefill import _DTYPES
 from .ref import mamba2_ssd_ref as plain
+from .rwkv6_scan import _aligned16
 
 STATE_DIMS = (16, 32, 64, 128)
 COLS = 16          # state columns per block: P must be a multiple
@@ -45,6 +53,22 @@ _BWD_ARGTYPES = [_i, _i, *[_p] * 22, _i, _i, _i, _i, *[_ll] * 10, _p]
 # (csrc/mamba2_ssd_backward.cu, kHistBytes)
 BWD_ROWS = {n: max(n, 32) for n in STATE_DIMS}
 SUB_CHUNK = {n: 32768 // (BWD_ROWS[n] * COLS * 4) for n in STATE_DIMS}
+# the chunked backward: chunks of 64 steps, blocks of 64 state columns,
+# at the state dim it is built for
+CHUNK, CHUNK_COLS, CHUNK_STATE = 64, 64, 64
+
+
+def backward_kernel_for(x: torch.Tensor, B_mat: torch.Tensor,
+                        C_mat: torch.Tensor, dy: torch.Tensor) -> str:
+    """The route that ``mamba2_ssd_backward`` launches on the card for
+    these inputs (dy as the wrapper passes it, contiguous):
+    ``"chunked"`` for bf16 at N 64 with P a multiple of 64 and x, B_mat,
+    C_mat and dy 16-byte aligned, else ``"step"``."""
+    if x.dtype == torch.bfloat16 and B_mat.shape[-1] == CHUNK_STATE \
+            and x.shape[-1] % CHUNK_COLS == 0 \
+            and all(_aligned16(t) for t in (x, B_mat, C_mat, dy)):
+        return "chunked"
+    return "step"
 
 
 def _check(x, dt, A, B_mat, C_mat, D, state):
@@ -181,17 +205,24 @@ def mamba2_ssd_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ddt = torch.empty((Bsz, T, NH), **f32)
     dA, dD = (torch.empty(NH, **f32) for _ in range(2))
     dstate = torch.empty_like(state)
-    ns = P // COLS
-    # each block's kept states (one every sub-chunk), and its partials of
-    # the sums across blocks
-    states = torch.empty(Bsz * NH * ns * -(-T // SUB_CHUNK[N]) * BWD_ROWS[N]
-                         * COLS, **f32)
+    route = backward_kernel_for(x, B_mat, C_mat, dy)
+    if route == "chunked":
+        # the state at each chunk's start as bf16 hi and lo planes, and
+        # each column block's partials of the sums across blocks
+        ns, symbol = P // CHUNK_COLS, "mamba2_ssd_bwd_chunked"
+        states = torch.empty((Bsz, NH, -(-T // CHUNK), 2, N, P),
+                             dtype=torch.bfloat16, device=dev)
+    else:
+        # each block's kept states (one every sub-chunk), and its
+        # partials of the sums across blocks
+        ns, symbol = P // COLS, "mamba2_ssd_bwd"
+        states = torch.empty(Bsz * NH * ns * -(-T // SUB_CHUNK[N])
+                             * BWD_ROWS[N] * COLS, **f32)
     dB_part, dC_part = (torch.empty((Bsz, NH, ns, T, N), **f32)
                         for _ in range(2))
     ddt_part = torch.empty((Bsz, NH, ns, T), **f32)
     dA_part, dD_part = (torch.empty((Bsz, NH, ns), **f32) for _ in range(2))
-    launch = _build.launcher("mamba2_ssd_backward", "mamba2_ssd_bwd",
-                             _BWD_ARGTYPES)
+    launch = _build.launcher("mamba2_ssd_backward", symbol, _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         launch(_DTYPES[x.dtype], N, *(t.data_ptr() for t in (
@@ -201,6 +232,8 @@ def mamba2_ssd_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             B_mat.stride(0), B_mat.stride(1), C_mat.stride(0),
             C_mat.stride(1), stream)
     mamba2_ssd.backward_launches += 1
+    if route == "chunked":
+        mamba2_ssd.backward_chunked_launches += 1
     return dx, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype), dstate
 
 
@@ -218,5 +251,20 @@ class Mamba2SSD(torch.autograd.Function):
         return mamba2_ssd_backward(*ctx.saved_tensors, dy, ds_out)
 
 
+def backward_occupancy() -> dict:
+    """Resident blocks an SM of each backward kernel at N 64 in bf16, as
+    launched (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the
+    current card): the step kernel, and the chunked route's state launch
+    and walk."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.load("mamba2_ssd_backward").mamba2_ssd_bwd_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    err = fn(out)
+    if err:
+        raise RuntimeError(f"mamba2_ssd_backward: CUDA error {err}")
+    return dict(zip(("step", "chunked_states", "chunked_walk"), out))
+
+
 mamba2_ssd.launches = 0
 mamba2_ssd.backward_launches = 0
+mamba2_ssd.backward_chunked_launches = 0

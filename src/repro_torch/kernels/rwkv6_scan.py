@@ -53,11 +53,12 @@ SUB_CHUNK = {hd: 32768 // (hd * hd) for hd in HEAD_DIMS}
 
 
 def _aligned16(t: torch.Tensor) -> bool:
-    """Base and the three outer strides on 16-byte multiples: the chunked
-    kernel copies 16-byte pieces (cp.async)."""
+    """Base and outer strides on 16-byte multiples: the chunked kernels
+    (this scan's, and the SSD backward's) copy 16-byte pieces
+    (cp.async)."""
     per = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(s % per == 0
-                                          for s in t.stride()[:3])
+                                          for s in t.stride()[:-1])
 
 
 def kernel_for(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -628,6 +628,81 @@ def test_mamba2_backward_is_deterministic(card, dtype):
     assert mamba2_ssd.mamba2_ssd.backward_launches == bwd
 
 
+@pytest.mark.parametrize("B,T,NH,P,dt_kind,skip,carried", [
+    (2, 1024, 80, 64, "model", True, False),   # zamba2-2.7b's training shape
+    (1, 1024, 80, 64, "model", True, False),   # B = 1
+    (1, 37, 4, 64, "model", True, True),       # T < a chunk
+    (2, 300, 8, 64, "model", True, True),      # carried, a ragged tail
+    (1, 256, 4, 64, "zero", True, True),       # decays exactly 0
+    (2, 130, 4, 64, "model", False, True),     # no D
+    (1, 200, 4, 128, "near1", True, True),     # two column blocks, decay ~1
+])
+def test_mamba2_backward_chunked_matches_plain(card, B, T, NH, P, dt_kind,
+                                               skip, carried):
+    """bf16 at N 64 takes the chunked route (its counter moves by one):
+    every gradient within bf16's tolerance of its largest magnitude
+    against autograd of the plain scan, from a carried state with a
+    nonzero d(final state) or from zeros."""
+    x, dt, A, Bm, Cm, D = _ssd_case(card, B, T, NH, P, 64, torch.bfloat16,
+                                    dt_kind)
+    zero = torch.zeros(B, NH, 64, P, device="cuda")
+    s0, ds = ((_rand(card, (B, NH, 64, P)), _rand(card, (B, NH, 64, P)))
+              if carried else (zero, zero))
+    dy = _rand(card, (B, T, NH, P)).to(torch.bfloat16)
+    ins = (x, dt, A, Bm, Cm, D if skip else None, s0)
+    assert mamba2_ssd.backward_kernel_for(x, Bm, Cm, dy) == "chunked"
+    before = mamba2_ssd.mamba2_ssd.backward_chunked_launches
+    got = _ssd_grads(mamba2_ssd.mamba2_ssd, ins, dy, ds)
+    assert mamba2_ssd.mamba2_ssd.backward_chunked_launches == before + 1
+    want = _ssd_grads(ref.mamba2_ssd_ref, ins, dy, ds)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all()
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=TOL[torch.bfloat16] * scale)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("bf16-N64", "chunked"), ("f32-N64", "step"), ("bf16-N16", "step"),
+    ("bf16-N128", "step"), ("bf16-unaligned-x", "step"),
+])
+def test_mamba2_backward_route(card, case, route):
+    """The route each input takes, by the wrapper's rule and the counters:
+    the chunked one only for bf16 at N 64 with aligned x, B, C and dy; f32,
+    N 16 and 128, and an x view whose head stride is not a multiple of 8
+    take the step kernel by that rule (not after a failed launch), and
+    every route's gradients hold to the plain scan."""
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    N = {"bf16-N16": 16, "bf16-N128": 128}.get(case, 64)
+    B, T, NH, P = 2, 150, 4, 64
+    x, dt, A, Bm, Cm, D = _ssd_case(card, B, T, NH, P, N, dtype)
+    if case == "bf16-unaligned-x":   # heads P + 1 apart: strides odd
+        x = _rand(card, (B, T, NH, P + 1)).to(dtype)[..., :P]
+    s0, ds = (_rand(card, (B, NH, N, P)) for _ in range(2))
+    dy = _rand(card, (B, T, NH, P)).to(dtype)
+    assert mamba2_ssd.backward_kernel_for(x, Bm, Cm, dy) == route
+    counts = (mamba2_ssd.mamba2_ssd.backward_launches,
+              mamba2_ssd.mamba2_ssd.backward_chunked_launches)
+    got = mamba2_ssd.mamba2_ssd_backward(x, dt, A, Bm, Cm, D, s0, dy, ds)
+    chunked = int(route == "chunked")
+    assert (mamba2_ssd.mamba2_ssd.backward_launches,
+            mamba2_ssd.mamba2_ssd.backward_chunked_launches) == (
+                counts[0] + 1, counts[1] + chunked)
+    want = _ssd_grads(ref.mamba2_ssd_ref, (x, dt, A, Bm, Cm, D, s0), dy, ds)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=TOL[dtype] * scale)
+
+
+def test_mamba2_backward_occupancy(card):
+    """Two chunked walk blocks fit an SM, so zamba2's 160 blocks at B = 2
+    are one wave on 132 SMs."""
+    occ = mamba2_ssd.backward_occupancy()
+    assert occ["chunked_walk"] >= 2 and occ["chunked_states"] >= 1 \
+        and occ["step"] >= 1, occ
+
+
 # ----------------------------------------------------------------------
 # the rwkv6 backward kernel
 # ----------------------------------------------------------------------
