@@ -100,14 +100,19 @@ Phases, each fatal on failure (the script exits non-zero):
      and against kernel-free in f64, TF32 off: grads within 1e-4 of each
      leaf's largest, or, where f32 itself misses that (rwkv6-3b), the
      kernels' largest distance from f64 at most 3x the kernel-free
-     f32's; (7e) the rwkv6 backward kernel against autograd
-     of the plain scan in bf16 and f32 at rwkv6-3b's training shape
-     ([2,1024,40,64]), B = 1, hd 32 and 128, a carried state with a
-     nonzero d(final state), decays near 0, near 1 and exactly 0, T 37
-     and T 1: each gradient within the tolerance of its largest
+     f32's, every backward on its step kernel; (7e) the rwkv6 backward
+     kernel against autograd of the plain scan in bf16 and f32 at
+     rwkv6-3b's training shape ([2,1024,40,64]), B = 1, hd 32 and 128, a
+     carried state with a nonzero d(final state), decays near 0, near 1
+     and exactly 0, T 37 and T 1, each line naming its route (bf16 at hd
+     64 chunked on the tensor cores, near 0 and exact zeros included,
+     the chunked route's counter moving with it; the rest the step
+     kernel): each gradient within the tolerance of its largest
      magnitude, its distance from an f64 autograd beside the plain
      f32's, two calls bit for bit, its time, the plain version's and the
-     bound; (7f) the SSD backward kernel likewise in bf16 and f32 at
+     bound, at the training shape in bf16 the step kernel's time on the
+     same inputs, and each route's resident blocks an SM; 7b requires
+     every one of rwkv6-3b's backward launches on the chunked route; (7f) the SSD backward kernel likewise in bf16 and f32 at
      zamba2-2.7b's training shape ([2,1024,80,64], N 64), B = 1, a
      carried state with a nonzero d(final state), N 16 at P 32 and N
      128, decays near 1 and exactly 0, no D, T 37 and T 1, each line
@@ -134,16 +139,18 @@ before its last line, which is
 
   python3 chip_smoke.py            # from the repository root
 
-Five diagnostics, which print their JSON line and the card instead:
+Six diagnostics, which print their JSON line and the card instead:
 ``--windows DIR`` times phase 3's prefill and decode step, store and
 fetch per medium (and the flash wrapper's host time, and the paged
 kernel at five shapes) of the
 checkout at DIR, so that two checkouts are compared in one call with one
 yardstick; ``--train DIR`` runs phase 7b's training of the checkout at
-DIR (its losses, step walls and launches); ``--flash-ablation``,
-``--rwkv6-ablation`` and ``--ssd-backward-ablation`` time the bf16
-flash kernel, the chunked rwkv6 kernel or the chunked SSD backward's
-walk built with one part switched off at a time.
+DIR (each trained arch's losses, step walls, launches and a profiled
+step's busy time); ``--flash-ablation``,
+``--rwkv6-ablation``, ``--ssd-backward-ablation`` and
+``--rwkv6-backward-ablation`` time the bf16 flash kernel, the chunked
+rwkv6 kernel, the chunked SSD backward's walk or the chunked rwkv6
+backward built with one part switched off at a time.
 """
 from __future__ import annotations
 
@@ -1510,7 +1517,7 @@ def phase_simulator(torch, streams3) -> dict:
 # ----------------------------------------------------------------------
 # phase 7: training
 # ----------------------------------------------------------------------
-TRAIN_ARCH = "llama32-3b"        # phase 8's model, and --train's
+TRAIN_ARCH = "llama32-3b"        # phase 8's model
 TRAIN_ARCHS = ("llama32-3b", "rwkv6-3b", "zamba2-2.7b")
 BACKWARD = ("flash_attention_backward", "rwkv6_scan_backward",
             "mamba2_ssd_backward")   # the backward kernels' counters
@@ -1664,13 +1671,15 @@ def step_launches(cfg) -> dict:
            **{f"{k}_backward": n for k, n in calls.items()}}
     if "mamba2_ssd" in calls:    # every backward on the chunked route
         got["mamba2_ssd_backward_chunked"] = calls["mamba2_ssd"]
+    if "rwkv6_scan" in calls:
+        got["rwkv6_scan_backward_chunked"] = calls["rwkv6_scan"]
     return got
 
 
 def train_counts(torch, reset: bool = False) -> dict:
-    """The seven launch counts and the SSD backward's chunked route's
-    (set to 0 first with ``reset``); a backward's reads 0 in a checkout
-    from before it, and the chunked route's is left out there."""
+    """The seven launch counts and the SSD and rwkv6 backwards' chunked
+    routes' (set to 0 first with ``reset``); a backward's reads 0 in a
+    checkout from before it, and a chunked route's is left out there."""
     from repro_torch.kernels import flash_prefill, mamba2_ssd, rwkv6_scan
     counters = launch_counters()
     backward = {"flash_attention_backward": flash_prefill.flash_attention,
@@ -1684,11 +1693,12 @@ def train_counts(torch, reset: bool = False) -> dict:
     got = {k: fn.launches for k, fn in counters.items()}
     for k, fn in backward.items():
         got[k] = getattr(fn, "backward_launches", 0)
-    ssd = mamba2_ssd.mamba2_ssd
-    if hasattr(ssd, "backward_chunked_launches"):
-        if reset:
-            ssd.backward_chunked_launches = 0
-        got["mamba2_ssd_backward_chunked"] = ssd.backward_chunked_launches
+    for key, fn in (("mamba2_ssd_backward_chunked", mamba2_ssd.mamba2_ssd),
+                    ("rwkv6_scan_backward_chunked", rwkv6_scan.rwkv6_scan)):
+        if hasattr(fn, "backward_chunked_launches"):
+            if reset:
+                fn.backward_chunked_launches = 0
+            got[key] = fn.backward_chunked_launches
     return got
 
 
@@ -2038,8 +2048,9 @@ def train_parity(torch, arch: str) -> None:
             f"{k64:.2e} against the kernel-free f32's {p64:.2e}")
     require(all(counted[k] == n for k, n in step_launches(cfg).items()
                 if k in BACKWARD), f"7d {arch} backward launches {counted}")
-    require(counted.get("mamba2_ssd_backward_chunked", 0) == 0,
-            f"7d {arch}: f32 took the chunked SSD backward ({counted})")
+    require(counted.get("mamba2_ssd_backward_chunked", 0) == 0
+            and counted.get("rwkv6_scan_backward_chunked", 0) == 0,
+            f"7d {arch}: f32 took a chunked backward ({counted})")
     require((p_rms <= 1e-3 * TRAIN_LR or k_rms64 <= NOISE_FLOOR * p_rms64)
             and p_max <= 2.0 * TRAIN_LR,
             f"7d {arch} updated params differ: RMS {p_rms:.2e} (from f64 "
@@ -2097,15 +2108,24 @@ def rwkv6_backward_kernel(torch) -> dict:
     magnitude (its sums run over up to T states of |S| up to ~100 near
     decay 1, in another order than autograd's, so an element near 0
     cannot be held to TOL of itself), two calls bit for bit equal, its
-    time (CUDA events, cold L2), the plain forward + backward's, and the
-    bound (12 operations per step, key and value: the state, G's update
-    and the four sums; each input and gradient moved once). Returns the
-    JSON row (training shape, bf16)."""
+    route (bf16 at hd 64 must take the chunked one, its counter moving
+    with it: near 0 and exact zeros included), its time (CUDA events,
+    cold L2), at the training shape in bf16 the step kernel's time on the
+    same inputs, the plain forward + backward's, and the bound (12
+    operations per step, key and value: the state, G's update and the
+    four sums; each input and gradient moved once); each route's resident
+    blocks an SM. Returns the JSON row (training shape, bf16)."""
     from repro_torch.kernels import rwkv6_scan
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     g = torch.Generator(device="cuda").manual_seed(9)
     row = None
+    occ = rwkv6_scan.backward_occupancy()
+    log(f"7e rwkv6 backward, resident blocks an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, hd 64, bf16): "
+        f"step kernel {occ['step']} (256 threads), chunked route's carries "
+        f"{occ['chunked_carries']} (256 threads), its chunk blocks "
+        f"{occ['chunked_chunks']} (512 threads)")
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
@@ -2128,10 +2148,19 @@ def rwkv6_backward_kernel(torch) -> dict:
             s0, ds = ((randn(B, NH, hd, hd), randn(B, NH, hd, hd))
                       if carried else (zero, zero))
             ins = (r, k, v, w, u, s0)
+            route = rwkv6_scan.backward_kernel_for(r, k, v, w, dy)
+            require(route == "chunked" or dtype_name == "float32"
+                    or hd != 64, f"rwkv6 backward {label} {dtype_name}: "
+                                 f"route {route}, not chunked")
 
             def kernel():
                 return rwkv6_scan.rwkv6_scan_backward(*ins, dy, ds)
+            chunked = rwkv6_scan.rwkv6_scan.backward_chunked_launches
             got, again = kernel(), kernel()
+            require(rwkv6_scan.rwkv6_scan.backward_chunked_launches
+                    == chunked + 2 * (route == "chunked"),
+                    f"rwkv6 backward {label} {dtype_name}: route {route} "
+                    f"not taken")
             want = plain_rwkv6_grads(torch, ins, dy, ds)
             with in_float64(torch):
                 exact = plain_rwkv6_grads(torch, [t.double() for t in ins],
@@ -2146,6 +2175,27 @@ def rwkv6_backward_kernel(torch) -> dict:
             ok = all(e <= tol * max(sc, 1e-30) for e, sc in zip(errs, scales))
             same = all(same_bits(torch, a, b) for a, b in zip(got, again))
             ms = cuda_ms(torch, kernel, flush=flush)
+            step = ""
+            if label == "train" and route == "chunked":
+                # the step kernel on the same inputs, in the same call:
+                # its gradients within TOL too, then both timed in turns
+                def step_kernel():
+                    return rwkv6_scan.rwkv6_scan_backward(*ins, dy, ds,
+                                                          route="step")
+                errs_step = [max_err(torch, a, b) for a, b in zip(
+                    step_kernel(), want)]
+                step_ms = cuda_ms(torch, step_kernel, flush=flush)
+                ms = statistics.median([ms, cuda_ms(torch, kernel,
+                                                    flush=flush)])
+                step_ms = statistics.median([step_ms, cuda_ms(
+                    torch, step_kernel, flush=flush)])
+                step = (f"; the step kernel on the same inputs {step_ms:.4f}"
+                        f" ms ({step_ms / ms:.2f}x), max_abs_err "
+                        f"{[f'{e:.3e}' for e in errs_step]}")
+                require(all(e <= tol * max(sc, 1e-30) for e, sc in zip(
+                    errs_step, [float(b.float().abs().max())
+                                for b in want])),
+                        f"rwkv6 backward step route: errors {errs_step}")
             plain_ms = cuda_ms(torch, lambda: plain_rwkv6_grads(
                 torch, ins, dy, ds), reps=2, warmup=1)
             flops = 12.0 * B * T * NH * hd * hd
@@ -2153,7 +2203,8 @@ def rwkv6_backward_kernel(torch) -> dict:
             b_ms, b_by = bound(flops, nbytes, dtype_name)
             log(f"7e rwkv6 backward {label:7s} {dtype_name:8s} B={B} T={T} "
                 f"NH={NH} hd={hd} carried={carried} "
-                f"w={decay or 'model'}: max_abs_err dr dk dv dw du dstate "
+                f"w={decay or 'model'}, route {route}: max_abs_err dr dk "
+                f"dv dw du dstate "
                 f"{[f'{e:.3e}' for e in errs]} against largest "
                 f"{[f'{x:.3e}' for x in scales]} (tol {tol} of it); from "
                 f"f64 over its largest: kernel "
@@ -2161,7 +2212,7 @@ def rwkv6_backward_kernel(torch) -> dict:
                 f"{[f'{x:.2e}' for x in from64[1]]}; two "
                 f"calls bit for bit {same}; kernel {ms:.4f} ms, plain "
                 f"forward + backward {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), {b_ms / ms:.1%} of it")
+                f"({b_by}), {b_ms / ms:.1%} of it{step}")
             require(ok, f"rwkv6 backward {label} {dtype_name}: errors "
                         f"{errs} over {tol} of {scales}")
             require(same, f"rwkv6 backward {label} {dtype_name}: two calls "
@@ -2170,7 +2221,10 @@ def rwkv6_backward_kernel(torch) -> dict:
                 log_forward_from_f64(torch, ins)
             if label == "train" and dtype_name == "bfloat16":
                 row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           design=f"{route}: bf16 at hd 64 on mma.sync (f32 "
+                                  f"and other shapes step by step on the "
+                                  f"CUDA cores)")
             del r, k, v, w, dy, u, s0, ds, ins, got, again, want, exact
     del flush_buf
     torch.cuda.empty_cache()
@@ -2532,12 +2586,18 @@ def windows_only(torch) -> dict:
 
 
 def train_only(torch) -> dict:
-    """``--train DIR``: phase 7b's training run (no flag, no profile) of
-    the checkout whose ``src`` is on the path: its losses, step walls,
-    launches and peak memory. Run on two checkouts in one call, it shows
-    whether a change moved the train step's numbers."""
-    run = train_run(torch, "7b")
-    return dict(run, walls=[round(x, 4) for x in run["walls"]])
+    """``--train DIR``: phase 7b's training run (no flag) of each of
+    TRAIN_ARCHS, and one profiled step of each, of the checkout whose
+    ``src`` is on the path: losses, step walls, launches, peak memory and
+    the card's busy time. Run on two checkouts in one call (parent,
+    change, change, parent), it shows whether a change moved the train
+    steps' numbers."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        run = train_run(torch, "7b", arch=arch)
+        profile_train_step(torch, "7b", arch=arch)
+        out[arch] = dict(run, walls=[round(x, 4) for x in run["walls"]])
+    return out
 
 
 def transfer_times(torch, payload) -> dict:
@@ -2589,6 +2649,10 @@ ABLATIONS = {   # kernel: (source, macro, {value: the part switched off})
     "ssd_backward": ("mamba2_ssd_backward", "SSD_BWD_ABLATE", {
         1: "chunk-start state off", 2: "dL scan off", 3: "K, E tiles off",
         4: "G products off", 5: "stores off"}),
+    "rwkv6_backward": ("rwkv6_backward", "RWKV6_BWD_ABLATE", {
+        1: "carries off", 2: "A, dA tiles off", 3: "dV, dR, dK products off",
+        4: "dw pass off", 5: "stores of dr, dk, dv off",
+        6: "exact dw rows off"}),
 }
 
 
@@ -2610,7 +2674,29 @@ def ablated_builds(kernel: str) -> dict:
         report, _ = proc.communicate()
         require(proc.returncode == 0, f"{kernel} ablation {n} build:\n{report}")
         libs[n] = ctypes.CDLL(str(lib))
+        libs[n].kernel_error_string.argtypes = [ctypes.c_int]
+        libs[n].kernel_error_string.restype = ctypes.c_char_p
     return libs
+
+
+def ablated_times(torch, kernel: str, symbol: str, libs: dict, fn,
+                  flush) -> dict:
+    """``fn`` timed with the wrapper bound, in turn, to the entry
+    ``symbol`` of each ablated build in ``libs`` (then to the built one's
+    again): {the part switched off: ms}."""
+    from repro_torch.kernels import _build
+    name, _, parts = ABLATIONS[kernel]
+    built = _build.load(name)
+    out = {}
+    for n, what in parts.items():
+        _build._libs[name] = libs[n]
+        _build._launchers.pop(symbol, None)
+        try:
+            out[what] = cuda_ms(torch, fn, flush=flush)
+        finally:
+            _build._libs[name] = built
+            _build._launchers.pop(symbol, None)
+    return out
 
 
 def flash_ablation(torch) -> dict:
@@ -2710,13 +2796,9 @@ def ssd_backward_ablation(torch) -> dict:
     switches one part of the walk off (its output is then wrong), timed
     (all three launches) at zamba2-2.7b's training shape and at B = 1:
     what each part costs the kernel."""
-    from repro_torch.kernels import _build, mamba2_ssd
+    from repro_torch.kernels import mamba2_ssd
     import torch.nn.functional as F
-    name, symbol = "mamba2_ssd_backward", "mamba2_ssd_bwd_chunked"
     libs = ablated_builds("ssd_backward")
-    for lib in libs.values():
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
     g = torch.Generator(device="cuda").manual_seed(11)
     out = {}
@@ -2735,22 +2817,48 @@ def ssd_backward_ablation(torch) -> dict:
         def kernel():
             return mamba2_ssd.mamba2_ssd_backward(x, dt, A, Bm, Cm, D, s0,
                                                   dy, s0)
-        t = {"as built": cuda_ms(torch, kernel, flush=flush)}
-        built = _build.load(name)
-        for n, what in ABLATIONS["ssd_backward"][2].items():
-            # the wrapper binds the ablated library's entry, then the
-            # built one's again
-            _build._libs[name] = libs[n]
-            _build._launchers.pop(symbol, None)
-            try:
-                t[what] = cuda_ms(torch, kernel, flush=flush)
-            finally:
-                _build._libs[name] = built
-                _build._launchers.pop(symbol, None)
+        t = {"as built": cuda_ms(torch, kernel, flush=flush),
+             **ablated_times(torch, "ssd_backward", "mamba2_ssd_bwd_chunked",
+                             libs, kernel, flush)}
         out[label] = t
         log(f"ssd backward ablation {label} (B={B} T={T} NH={NH} P={P} "
             f"N={N}, chunked): " + ", ".join(f"{w} {ms:.4f} ms"
                                              for w, ms in t.items()))
+    return out
+
+
+def rwkv6_backward_ablation(torch) -> dict:
+    """``--rwkv6-backward-ablation``: the chunked rwkv6 backward as built
+    (and the step kernel on the same inputs) and built with
+    RWKV6_BWD_ABLATE = 1..5, each of which switches one part of it off
+    (its output is then wrong), timed (all three launches) at rwkv6-3b's
+    training shape and at B = 1: what each part costs the kernel."""
+    from repro_torch.kernels import rwkv6_scan
+    libs = ablated_builds("rwkv6_backward")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda").zero_
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for label, B in (("train", 2), ("B1", 1)):
+        T, NH, hd = TRAIN_S, 40, 64
+        r, k, v, dy = (torch.randn(B, T, NH, hd, generator=g, device="cuda")
+                       .bfloat16() for _ in range(4))
+        w = torch.exp(-torch.exp(0.5 * torch.randn(
+            B, T, NH, hd, generator=g, device="cuda") - 1.0))
+        u = 0.1 * torch.randn(NH, hd, generator=g, device="cuda")
+        s0 = torch.zeros(B, NH, hd, hd, device="cuda")
+
+        def kernel(route=None):
+            return rwkv6_scan.rwkv6_scan_backward(r, k, v, w, u, s0, dy, s0,
+                                                  route=route)
+        t = {"as built": cuda_ms(torch, kernel, flush=flush),
+             "step kernel": cuda_ms(torch, lambda: kernel("step"),
+                                    flush=flush),
+             **ablated_times(torch, "rwkv6_backward", "rwkv6_scan_bwd", libs,
+                             kernel, flush)}
+        out[label] = t
+        log(f"rwkv6 backward ablation {label} (B={B} T={T} NH={NH} hd={hd}, "
+            f"chunked): " + ", ".join(f"{w} {ms:.4f} ms"
+                                      for w, ms in t.items()))
     return out
 
 
@@ -2771,6 +2879,9 @@ def main() -> int:
     ap.add_argument("--ssd-backward-ablation", action="store_true",
                     help="only time the chunked SSD backward with parts of "
                          "its walk switched off")
+    ap.add_argument("--rwkv6-backward-ablation", action="store_true",
+                    help="only time the chunked rwkv6 backward with parts "
+                         "switched off")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2802,7 +2913,8 @@ def main() -> int:
                   train_only if args.train is not None else
                   flash_ablation if args.flash_ablation else
                   rwkv6_ablation if args.rwkv6_ablation else
-                  ssd_backward_ablation if args.ssd_backward_ablation
+                  ssd_backward_ablation if args.ssd_backward_ablation else
+                  rwkv6_backward_ablation if args.rwkv6_backward_ablation
                   else None)
     if diagnostic is not None:
         fn = diagnostic

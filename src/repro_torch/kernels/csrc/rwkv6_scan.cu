@@ -91,7 +91,7 @@
 //
 // Both kernels mask their ragged tail and read their inputs in place by
 // their strides.
-#include "tensor_core.cuh"
+#include "rwkv6_chunked.cuh"
 
 namespace {
 
@@ -213,23 +213,15 @@ int dispatch_step(int hd, const Params& p, cudaStream_t stream) {
 // chunked kernel: bf16 at hd 64 on the tensor cores (mma.sync)
 // ----------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
+using namespace rwkv6;
 
-constexpr int kHD = 64;            // head dim (rwkv6-3b's)
-constexpr int kChunk = 64;         // steps per chunk
-constexpr int kSub = 16;           // steps per sub-chunk (one mma row tile)
-constexpr int kNSub = kChunk / kSub;
 constexpr int kGroupCols = 32;     // value columns per block
 constexpr int kCWarps = 16;        // warp w: rows of sub-chunk w/4, columns 8 (w%4)..
 constexpr int kCThreads = kCWarps * 32;
-constexpr int kLd = kHD + 8;       // bf16 row of r, k and the operands (padded)
 constexpr int kLdV = kGroupCols + 8;   // bf16 row of v and the state slice
-constexpr int kLdD = kSub + 8;     // bf16 row of an A tile
-constexpr int kLdL = kHD + 4;      // f32 row of Lc (see the operand pass)
 constexpr int kSegs = kCThreads / kHD;            // 8: steps of Lc summed apart
 constexpr int kSegLen = kChunk / kSegs;
-constexpr int kPairs = kNSub * (kNSub + 1) / 2;   // sub-chunk pairs i <= j
 constexpr int kFacRows = kPairs + 2 * kNSub;       // pairs, carry, inter
-constexpr float kSpanMax = 64.f;   // widest log2-decay a diagonal block factors
 
 // Development switch (chip_smoke.py --rwkv6-ablation): 1 skips the A
 // tiles, 2 the operand pass, 3 all products, 4 the logarithms (every
@@ -238,34 +230,6 @@ constexpr float kSpanMax = 64.f;   // widest log2-decay a diagonal block factors
 #define RWKV6_ABLATE 0
 #endif
 constexpr int kAblate = RWKV6_ABLATE;
-
-// 8 bf16 in one 16-byte word -> f32
-__device__ __forceinline__ void unpack8(const uint4 raw, float (&f)[8]) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 t = unpack(w[q]);
-    f[2 * q] = t.x;
-    f[2 * q + 1] = t.y;
-  }
-}
-
-// (a, b) as three bf16 pairs hi + mid + lo: all 24 bits of an f32 value.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  split2(a - hf.x, b - hf.y, mid, lo);
-  hi = as_u32(h);
-}
-
-// out[0..8) = p[0..8) as two 16-byte shared-memory loads (p 16-byte aligned)
-__device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
 
 // Shared-memory plan (bytes). Two buffers of one chunk's r, k, v (bf16)
 // and w (f32); the cumulative log2-decays Lc, the factor table and the
@@ -296,50 +260,6 @@ struct ChunkSmem {
 };
 static_assert(ChunkSmem::bytes <= 232448, "shared memory plan too large");
 static_assert(ChunkSmem::rt % 16 == 0, "16-byte aligned operands");
-
-// pairs (i <= j) of sub-chunks: s in sub-chunk i, t in sub-chunk j
-__host__ __device__ constexpr int pair(int i, int j) { return j * (j + 1) / 2 + i; }
-
-// x[idx] of a register array without local memory
-template <int N>
-__device__ __forceinline__ float pick(const float (&x)[N], int idx) {
-  float v = x[0];
-#pragma unroll
-  for (int m = 1; m < N; ++m) v = idx == m ? x[m] : v;
-  return v;
-}
-
-// log2(max(w, 1e-38)), the TPU kernel's clamp, for w <= 1, with a small
-// relative error also where w is close to 1 (a decay's log is then tiny,
-// and lg2.approx's absolute error of 2^-22 would be a large relative
-// one): w = 2^e m with m in [sqrt(1/2), sqrt(2)), log2 m = (2 / ln 2)
-// atanh(z), z = (m-1)/(m+1), |z| <= 0.172, summed to z^9 (truncation
-// ~2e-9 relative). Denormals (1e-38 is one) are scaled by 2^24 first.
-__device__ __forceinline__ float log2_decay(float w) {
-  float x = fmaxf(w, 1e-38f);
-  const bool tiny = x < 1.17549435e-38f;
-  x = tiny ? x * 16777216.f : x;
-  const int bits = __float_as_int(x);
-  int e = ((bits >> 23) & 0xff) - 127 - (tiny ? 24 : 0);
-  float m = __int_as_float((bits & 0x7fffff) | 0x3f800000);   // [1, 2)
-  if (m > 1.41421356f) {
-    m *= 0.5f;
-    e += 1;
-  }
-  const float z = __fdividef(m - 1.f, m + 1.f);
-  const float z2 = z * z;
-  float q = fmaf(z2, 1.f / 9.f, 1.f / 7.f);
-  q = fmaf(z2, q, 1.f / 5.f);
-  q = fmaf(z2, q, 1.f / 3.f);
-  q = fmaf(z2, q, 1.f);
-  return fmaf(z * q, 2.f * kLog2e, (float)e);
-}
-
-// the bf16 pair (hi + lo) scaled by (f.x, f.y), split again into hi + lo
-__device__ __forceinline__ void rescale(uint32_t& hi, uint32_t& lo, float2 f) {
-  const float2 a = unpack(hi), b = unpack(lo);
-  split2((a.x + b.x) * f.x, (a.y + b.y) * f.y, hi, lo);
-}
 
 __global__ void __launch_bounds__(kCThreads, 1) rwkv6_chunked(const Params p) {
   using SM = ChunkSmem;
@@ -600,67 +520,8 @@ __global__ void __launch_bounds__(kCThreads, 1) rwkv6_chunked(const Params p) {
     // Thread: sub-chunk tid / 64, rows ta = i8 and tb = 15 - i8 of it (15
     // pairs together), channels 8 dq ..; the 8 dq lanes meet by shuffles ----
     const int jd = tid >> 6;   // threads 0..255: one sub-chunk a 64
-    if (kAblate != 1 && tid < kNSub * 64 && slow_block(jd)) {
-      const int i8 = (tid >> 3) & 7, dq = tid & 7;
-      const int ta = jd * kSub + i8, tb = jd * kSub + kSub - 1 - i8;
-      float ra[8], rb[8], la[8], lb[8], u8[8];
-      unpack8(*reinterpret_cast<const uint4*>(Rs + ta * kLd + 8 * dq), ra);
-      load8(Lc + ta * kLdL + 8 * dq, la);
-      unpack8(*reinterpret_cast<const uint4*>(Rs + tb * kLd + 8 * dq), rb);
-      load8(Lc + tb * kLdL + 8 * dq, lb);
-      load8(ub + 8 * dq, u8);
-      float aa[kSub], ab[kSub];
-#pragma unroll
-      for (int sl = 0; sl < kSub; ++sl) {
-        const int s = jd * kSub + sl;
-        float kk[8], ls[8];
-        unpack8(*reinterpret_cast<const uint4*>(Ks + s * kLd + 8 * dq), kk);
-        load8(Lc + (s + 1) * kLdL + 8 * dq, ls);
-        float va = 0.f, vb = 0.f;
-        if (sl < i8) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            va = fmaf(ra[e] * kk[e], fast_exp2(la[e] - ls[e]), va);
-        } else if (sl == i8) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) va = fmaf(ra[e] * kk[e], u8[e], va);
-        }
-        if (sl < kSub - 1 - i8) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            vb = fmaf(rb[e] * kk[e], fast_exp2(lb[e] - ls[e]), vb);
-        } else if (sl == kSub - 1 - i8) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) vb = fmaf(rb[e] * kk[e], u8[e], vb);
-        }
-        aa[sl] = va;
-        ab[sl] = vb;
-      }
-#pragma unroll
-      for (int sl = 0; sl < kSub; ++sl)
-#pragma unroll
-        for (int off = 1; off < 8; off <<= 1) {
-          aa[sl] += __shfl_xor_sync(0xffffffffu, aa[sl], off);
-          ab[sl] += __shfl_xor_sync(0xffffffffu, ab[sl], off);
-        }
-      // lane dq writes columns 2 dq, 2 dq + 1 of both rows
-      bf16* DH = Ax + pair(jd, jd) * 2 * SM::ax_tile;
-      bf16* DL = DH + SM::ax_tile;
-      float2 va = make_float2(0.f, 0.f), vb = va;
-#pragma unroll
-      for (int sl = 0; sl < kSub; sl += 2)
-        if (sl == 2 * dq) {
-          va = make_float2(aa[sl], aa[sl + 1]);
-          vb = make_float2(ab[sl], ab[sl + 1]);
-        }
-      uint32_t hi, lo;
-      split2(va.x, va.y, hi, lo);
-      *reinterpret_cast<uint32_t*>(DH + i8 * kLdD + 2 * dq) = hi;
-      *reinterpret_cast<uint32_t*>(DL + i8 * kLdD + 2 * dq) = lo;
-      split2(vb.x, vb.y, hi, lo);
-      *reinterpret_cast<uint32_t*>(DH + (kSub - 1 - i8) * kLdD + 2 * dq) = hi;
-      *reinterpret_cast<uint32_t*>(DL + (kSub - 1 - i8) * kLdD + 2 * dq) = lo;
-    }
+    if (kAblate != 1 && tid < kNSub * 64 && slow_block(jd))
+      exact_diag_a(tid, Rs, Ks, Lc, ub, Ax);
     __syncthreads();   // operands, table, bonus and exact blocks in place
 
     if (kAblate != 3) {
@@ -671,54 +532,9 @@ __global__ void __launch_bounds__(kCThreads, 1) rwkv6_chunked(const Params p) {
       // accumulators. The diagonal tile is masked to s < t and takes the
       // bonus on s = t ----
       for (int u = warp; u < 2 * kPairs && kAblate != 1; u += kCWarps) {
-        const int pr = u >> 1, hu = u & 1;
-        const int jj = pr >= pair(0, 3) ? 3 : pr >= pair(0, 2) ? 2
-                       : pr >= pair(0, 1) ? 1 : 0;
-        const int ii = pr - pair(0, jj);
-        if (ii == jj && slow_block(jj)) continue;   // written in 2b
-        float G[2][4] = {};
-#pragma unroll
-        for (int k2 = 0; k2 < kHD / 32; ++k2) {
-          uint32_t bh[4], bl[4];
-          const int boff = (ii * kSub + 8 * hu + (lane & 7)) * kLd +
-                           (2 * k2 + (lane >> 4)) * 16 + ((lane >> 3) & 1) * 8;
-          ldsm_x4(bh, KhH + boff);
-          ldsm_x4(bl, KhH + SM::op + boff);
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int kk = 2 * k2 + h2;
-            const float* f = fac + pr * kHD + kk * 16 + 2 * tq;
-            rescale(bh[2 * h2], bl[2 * h2], *reinterpret_cast<const float2*>(f));
-            rescale(bh[2 * h2 + 1], bl[2 * h2 + 1],
-                    *reinterpret_cast<const float2*>(f + 8));
-            uint32_t ah[4], al[4];
-            const int aoff =
-                (jj * kSub + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8;
-            ldsm_x4(ah, RtH + aoff);
-            ldsm_x4(al, RtH + SM::op + aoff);
-            mma16816(G[h2], ah, bh[2 * h2], bh[2 * h2 + 1]);
-            mma16816(G[h2], ah, bl[2 * h2], bl[2 * h2 + 1]);
-            mma16816(G[h2], al, bh[2 * h2], bh[2 * h2 + 1]);
-          }
-        }
-        float a[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a[e] = G[0][e] + G[1][e];
-          if (ii == jj) {
-            const int tl = g + 8 * (e >> 1), sl = 8 * hu + 2 * tq + (e & 1);
-            a[e] = sl < tl ? a[e] : sl == tl ? bonus[jj * kSub + tl] : 0.f;
-          }
-        }
-        bf16* AH = Ax + pr * 2 * SM::ax_tile;
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          uint32_t vh, vl;
-          split2(a[2 * rr], a[2 * rr + 1], vh, vl);
-          const int off = (g + 8 * rr) * kLdD + 8 * hu + 2 * tq;
-          *reinterpret_cast<uint32_t*>(AH + off) = vh;
-          *reinterpret_cast<uint32_t*>(AH + SM::ax_tile + off) = vl;
-        }
+        const int jj = pair_j(u >> 1);
+        if (u >> 1 == pair(jj, jj) && slow_block(jj)) continue;   // written in 2b
+        a_tile_unit(u, lane, RtH, KhH, fac, bonus, Ax);
       }
       cp_async_wait_all();   // chunk c+1's tiles: read by p1a after 3c
       __syncthreads();       // every A tile in place
@@ -810,15 +626,6 @@ int launch_chunked(const Params& p, cudaStream_t stream) {
   const dim3 grid(kHD / kGroupCols, p.NH, p.B);
   rwkv6_chunked<<<grid, kCThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// cp.async moves 16-byte pieces: bases and strides (in elements of
-// `elem` bytes) must be 16-byte multiples
-bool aligned16(const void* ptr, int elem, long long s0, long long s1,
-               long long s2) {
-  const long long per = 16 / elem;
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s0 % per == 0 &&
-         s1 % per == 0 && s2 % per == 0;
 }
 
 }  // namespace

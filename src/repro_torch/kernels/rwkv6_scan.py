@@ -5,8 +5,8 @@ rwkv6-3b is attention-free: each layer's prefill runs this recurrence
 over the prompt, and its final state is the whole handoff to decode (the
 paper's degenerate-transfer case). The forward kernels
 (``csrc/rwkv6_scan.cu``) replace the Pallas TPU kernel
-``repro/kernels/rwkv6_scan.py::_rwkv6_kernel``. The backward kernel
-(``csrc/rwkv6_backward.cu``) has no Pallas counterpart: the reference
+``repro/kernels/rwkv6_scan.py::_rwkv6_kernel``. The backward kernels
+(``csrc/rwkv6_backward.cu``) have no Pallas counterpart: the reference
 trains through ``jax.value_and_grad`` of the plain version. Each header
 says what bounds the kernel on the H100 and how it is laid out. Which
 inputs take which forward kernel (``kernel_for``):
@@ -19,14 +19,19 @@ inputs take which forward kernel (``kernel_for``):
   bf16. It scans token by token.
 
 Both mask their ragged tail, so they take any T, and one call is one
-launch. The wrappers take the plain version only for CPU tensors
-(autograd differentiates it there); for a CUDA tensor they launch a
-kernel or raise. ``rwkv6_scan`` goes through the ``RWKV6Scan`` autograd
-Function (a forward kernel, then the backward kernel) only when grad is
-enabled and an input requires it; otherwise it launches the forward
-kernel alone, as serving does. ``rwkv6_scan.launches`` counts the
-forward kernels' launches, ``rwkv6_scan.backward_launches`` the
-backward's.
+launch. The backward takes the same split (``backward_kernel_for``, from
+the tensors alone): the forward's chunked condition with dy aligned too
+runs the chunked form on the tensor cores (four launches: each chunk's
+terms of the two carries, their scans, one block per chunk, du's sum);
+the rest runs the step kernel (two launches). The wrappers take the
+plain version only for CPU tensors (autograd differentiates it there);
+for a CUDA tensor they launch a kernel or raise. ``rwkv6_scan`` goes
+through the ``RWKV6Scan`` autograd Function (a forward kernel, then the
+backward kernel) only when grad is enabled and an input requires it;
+otherwise it launches the forward kernel alone, as serving does.
+``rwkv6_scan.launches`` counts the forward kernels' launches,
+``rwkv6_scan.backward_launches`` the backward's (both routes),
+``rwkv6_scan.backward_chunked_launches`` those of the chunked route.
 """
 from __future__ import annotations
 
@@ -41,15 +46,21 @@ from .ref import rwkv6_scan_ref as plain
 
 HEAD_DIMS = (32, 64, 128)
 CHUNKED_HEAD_DIM = 64
-_KERNELS = {"step": 0, "chunked": 1}
+_KERNELS = {"step": 0, "chunked": 1}     # the forward's and the backward's
 
 _i, _ll, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = [_i, _i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
              *[_ll] * 12, _p]
-_BWD_ARGTYPES = [_i, _i, *[_p] * 16, _i, _i, _i, *[_ll] * 15, _p]
+_BWD_ARGTYPES = [_i, _i, _i, *[_p] * 16, _i, _i, _i, *[_ll] * 15, _p]
 # steps of the backward kernel's sub-chunk: its states S_t fill 128 KB of
 # shared memory (csrc/rwkv6_backward.cu, kHistBytes)
 SUB_CHUNK = {hd: 32768 // (hd * hd) for hd in HEAD_DIMS}
+# the chunked backward (csrc/rwkv6_backward.cu): chunks of 64 steps in
+# sub-chunks of 16; a diagonal sub-chunk block whose summed -log2 w passes
+# SPAN_MAX in some channel is taken with exact pairwise exponents; a
+# (chunk, channel) with a decay under W_MIN takes dw from the step
+# recurrence of its row instead of dividing w dw by w
+CHUNK, CHUNK_SUB, SPAN_MAX, W_MIN = 64, 16, 64.0, 0.0625
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -67,6 +78,17 @@ def kernel_for(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card: ``"chunked"`` or ``"step"`` (see the module docstring)."""
     if r.dtype == torch.bfloat16 and r.shape[-1] == CHUNKED_HEAD_DIM \
             and all(_aligned16(t) for t in (r, k, v, w)):
+        return "chunked"
+    return "step"
+
+
+def backward_kernel_for(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, dy: torch.Tensor) -> str:
+    """The route that ``rwkv6_scan_backward`` launches on the card for
+    these inputs (dy as the wrapper passes it, contiguous): ``"chunked"``
+    for the forward's chunked condition with dy 16-byte aligned too, else
+    ``"step"``."""
+    if kernel_for(r, k, v, w) == "chunked" and _aligned16(dy):
         return "chunked"
     return "step"
 
@@ -144,12 +166,15 @@ def _forward(r, k, v, w, u, state):
 def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         w: torch.Tensor, u: torch.Tensor,
                         state: Optional[torch.Tensor], dy: torch.Tensor,
-                        ds_out: Optional[torch.Tensor] = None
+                        ds_out: Optional[torch.Tensor] = None,
+                        route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """(dr, dk, dv, dw, du, dstate) of ``rwkv6_scan(r, k, v, w, u,
     state)`` for the gradients ``dy`` of y and ``ds_out`` of the final
     state (default zeros), each in its input's dtype (dstate f32). On CPU
-    tensors: autograd of the plain version."""
+    tensors: autograd of the plain version. On the card ``route`` (default
+    ``backward_kernel_for``'s) names the kernels, ``"step"`` or
+    ``"chunked"``; a route the inputs do not allow raises."""
     B, T, NH, hd = r.shape
     if state is None:
         state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
@@ -183,20 +208,38 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * NH == 0 or T == 0:
         return dr, dk, dv, dw, du.to(u.dtype), ds_out.clone()
     dstate = torch.empty_like(state)
-    # the state at each sub-chunk's start, and each (b, h)'s share of du
-    scratch = torch.empty((B, NH, -(-T // SUB_CHUNK[hd]), hd, hd),
-                          dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, NH, hd), dtype=torch.float32, device=r.device)
+    route = route or backward_kernel_for(r, k, v, w, dy)
+    if route not in _KERNELS:
+        raise ValueError(f"rwkv6_scan backward: no route {route!r}")
+    if route == "chunked":
+        # S and G at each chunk boundary as bf16 hi + lo planes, then each
+        # chunk's carry term and decay in f32 (as bf16 pairs), and each
+        # (b, chunk)'s share of du
+        nc = -(-T // CHUNK)
+        scratch = torch.empty(2 * B * NH * (2 * (nc + 1) * hd * hd
+                                            + 2 * nc * (hd * hd + hd)),
+                              dtype=torch.bfloat16, device=r.device)
+        du_part = torch.empty((B, nc, NH, hd), dtype=torch.float32,
+                              device=r.device)
+    else:
+        # the state at each sub-chunk's start, and each (b, h)'s share of du
+        scratch = torch.empty((B, NH, -(-T // SUB_CHUNK[hd]), hd, hd),
+                              dtype=torch.float32, device=r.device)
+        du_part = torch.empty((B, NH, hd), dtype=torch.float32,
+                              device=r.device)
     launch = _build.launcher("rwkv6_backward", "rwkv6_scan_bwd",
                              _BWD_ARGTYPES)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch(_DTYPES[r.dtype], hd, *(t.data_ptr() for t in (
-            r, k, v, w, dy, u32, state, ds_out, dr, dk, dv, dw, du_part, du,
-            dstate, scratch)), B, T, NH,
+        launch(_KERNELS[route], _DTYPES[r.dtype], hd, *(
+            t.data_ptr() for t in (r, k, v, w, dy, u32, state, ds_out, dr,
+                                   dk, dv, dw, du_part, du, dstate,
+                                   scratch)), B, T, NH,
             *r.stride()[:3], *k.stride()[:3], *w.stride()[:3],
             *v.stride()[:3], *dy.stride()[:3], stream)
     rwkv6_scan.backward_launches += 1
+    if route == "chunked":
+        rwkv6_scan.backward_chunked_launches += 1
     return dr, dk, dv, dw, du.to(u.dtype), dstate
 
 
@@ -214,5 +257,20 @@ class RWKV6Scan(torch.autograd.Function):
         return rwkv6_scan_backward(*ctx.saved_tensors, dy, ds_out)
 
 
+def backward_occupancy() -> dict:
+    """Resident blocks an SM of each backward kernel at hd 64 in bf16, as
+    launched (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on the
+    current card): the step kernel, and the chunked route's carries and
+    chunk blocks."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.load("rwkv6_backward").rwkv6_bwd_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    err = fn(out)
+    if err:
+        raise RuntimeError(f"rwkv6_backward: CUDA error {err}")
+    return dict(zip(("step", "chunked_carries", "chunked_chunks"), out))
+
+
 rwkv6_scan.launches = 0
 rwkv6_scan.backward_launches = 0
+rwkv6_scan.backward_chunked_launches = 0

@@ -767,6 +767,97 @@ def test_rwkv6_backward_is_deterministic(card, dtype):
     assert rwkv6_scan.rwkv6_scan.backward_launches == bwd
 
 
+@pytest.mark.parametrize("B,T,NH,w_lo,w_hi,zeros,carried", [
+    (2, 1024, 40, 0.45, 0.95, False, False),   # rwkv6-3b's training shape
+    (1, 1024, 40, 0.45, 0.95, False, False),   # B = 1
+    (1, 1000, 8, 0.45, 0.95, False, True),     # a ragged tail
+    (2, 37, 4, 0.45, 0.95, False, True),       # T < a chunk
+    (1, 1, 4, 0.45, 0.95, False, True),        # a single step
+    (2, 256, 4, 1e-6, 1e-3, False, True),      # decays near 0: exact rows
+    (2, 1024, 8, 0.999, 1.0, False, True),     # decays near 1
+    (1, 200, 4, 0.0, 1.0, True, True),         # w with exact zeros
+    (2, 300, 4, 0.02, 0.2, False, True),       # rows on both sides of W_MIN
+])
+def test_rwkv6_backward_chunked_matches_plain(card, B, T, NH, w_lo, w_hi,
+                                             zeros, carried):
+    """bf16 at hd 64 takes the chunked route (its counter moves by one):
+    every gradient within bf16's tolerance of its largest magnitude
+    against autograd of the plain scan, from a carried state with a
+    nonzero d(final state) or from zeros."""
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, 64, w_lo, w_hi, zeros=zeros)
+    zero = torch.zeros(B, NH, 64, 64, device="cuda")
+    s0, ds = ((_rand(card, (B, NH, 64, 64)), _rand(card, (B, NH, 64, 64)))
+              if carried else (zero, zero))
+    dy = _rand(card, (B, T, NH, 64)).to(torch.bfloat16)
+    ins = (r, k, v, w, u, s0)
+    assert rwkv6_scan.backward_kernel_for(r, k, v, w, dy) == "chunked"
+    before = rwkv6_scan.rwkv6_scan.backward_chunked_launches
+    got = _rwkv6_grads(rwkv6_scan.rwkv6_scan, ins, dy, ds)
+    assert rwkv6_scan.rwkv6_scan.backward_chunked_launches == before + 1
+    want = _rwkv6_grads(ref.rwkv6_scan_ref, ins, dy, ds)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.isfinite(g.float()).all()
+        scale = float(x.float().abs().max())
+        torch.testing.assert_close(g.float(), x.float(), rtol=0,
+                                   atol=TOL[torch.bfloat16] * scale)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("bf16-hd64", "chunked"), ("f32-hd64", "step"), ("bf16-hd32", "step"),
+    ("bf16-hd128", "step"), ("bf16-unaligned-r", "step"),
+])
+def test_rwkv6_backward_route(card, case, route):
+    """The route each input takes, by the wrapper's rule and the counters:
+    the chunked one only for bf16 at hd 64 with aligned r, k, v, w and
+    dy; f32, hd 32 and 128, and an r view whose head stride is odd take
+    the step kernel by that rule (not after a failed launch), and every
+    route's gradients hold to the plain scan."""
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    hd = {"bf16-hd32": 32, "bf16-hd128": 128}.get(case, 64)
+    B, T, NH = 2, 150, 4
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, hd, 0.45, 0.95, dtype)
+    if case == "bf16-unaligned-r":   # heads hd + 1 apart: odd strides
+        r = _rand(card, (B, T, NH, hd + 1)).to(dtype)[..., :hd]
+    s0, ds = (_rand(card, (B, NH, hd, hd)) for _ in range(2))
+    dy = _rand(card, (B, T, NH, hd)).to(dtype)
+    assert rwkv6_scan.backward_kernel_for(r, k, v, w, dy) == route
+    counts = (rwkv6_scan.rwkv6_scan.backward_launches,
+              rwkv6_scan.rwkv6_scan.backward_chunked_launches)
+    got = rwkv6_scan.rwkv6_scan_backward(r, k, v, w, u, s0, dy, ds)
+    assert (rwkv6_scan.rwkv6_scan.backward_launches,
+            rwkv6_scan.rwkv6_scan.backward_chunked_launches) == (
+                counts[0] + 1, counts[1] + int(route == "chunked"))
+    want = _rwkv6_grads(ref.rwkv6_scan_ref, (r, k, v, w, u, s0), dy, ds)
+    for g, x in zip(got, want):
+        scale = float(x.float().abs().max())
+        torch.testing.assert_close(g.float(), x.float(), rtol=0,
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("w_lo,w_hi,zeros", [(0.45, 0.95, False),
+                                             (0.0, 1.0, True)])
+def test_rwkv6_backward_chunked_is_deterministic(card, w_lo, w_hi, zeros):
+    """Two calls of the chunked route at the training shape give the same
+    bits (no atomics), exact rows included."""
+    B, T, NH = 2, 1024, 40
+    r, k, v, w, u = _rwkv6_case(card, B, T, NH, 64, w_lo, w_hi, zeros=zeros)
+    s0, ds = (_rand(card, (B, NH, 64, 64)) for _ in range(2))
+    dy = _rand(card, (B, T, NH, 64)).to(torch.bfloat16)
+    assert rwkv6_scan.backward_kernel_for(r, k, v, w, dy) == "chunked"
+    a = rwkv6_scan.rwkv6_scan_backward(r, k, v, w, u, s0, dy, ds)
+    b = rwkv6_scan.rwkv6_scan_backward(r, k, v, w, u, s0, dy, ds)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_rwkv6_backward_occupancy(card):
+    """Two carry blocks fit an SM, so the training shape's 160 are one
+    wave on 132 SMs; a chunk block (16 warps, ~183 KB) fits one."""
+    occ = rwkv6_scan.backward_occupancy()
+    assert occ["chunked_carries"] >= 2 and occ["chunked_chunks"] >= 1 \
+        and occ["step"] >= 1, occ
+
+
 @pytest.mark.parametrize("arch", ["llama32-3b", "rwkv6-3b", "zamba2-2.7b"])
 def test_train_step_on_card_matches_cpu(card, arch):
     """Two f32 steps of the reduced model's train step (llama: the flash
