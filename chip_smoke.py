@@ -131,7 +131,25 @@ Phases, each fatal on failure (the script exits non-zero):
      logged as 7b is (losses, step walls, tokens/s, share of the peak,
      peak memory, launches: flash 56 and backward 28 a step, one profiled
      step) and held to 7b's losses (``remat_dots``: each within 1e-5
-     relative; ``bf16_logits``: step 1 within 1e-2).
+     relative; ``bf16_logits``: step 1 within 1e-2);
+  9. distribution: (9a) the five collectives of
+     ``repro_torch.dist.collectives`` on NCCL in the world this machine
+     has (one rank a card), each against its analytic result; (9c) the
+     dry run's counter on a small DTensor step on a fake 2-rank mesh,
+     held to its flops, bytes and collectives written out, and the dry
+     run of llama32-3b's train step (7b's shape) on the one-device mesh
+     against the same step on the card: argument bytes equal to the real
+     arguments', flops equal to ``FlopCounterMode`` over the real step,
+     MemTracker's peak beside ``max_memory_allocated``, and the
+     roofline's step time at the H100's data sheet rates beside the
+     measured wall; then (9b) the dry run, ``python -m
+     repro_torch.launch.dryrun`` on fake tensors in 8 processes, started
+     after every phase that times the card: llama32-3b and the ten
+     assigned archs, all four shapes, on 16x16 with the roofline, and
+     llama32-3b and qwen2-0.5b on 2x16x16; every record's line is
+     logged, and every applicable cell of the dense family (llama32-3b,
+     qwen2-0.5b, qwen3-1.7b, yi-34b, command-r-35b) must be ok, other
+     families' failures logged.
 
 It prints the kernels' JSON line and the card's name and power limit
 before its last line, which is
@@ -139,18 +157,20 @@ before its last line, which is
 
   python3 chip_smoke.py            # from the repository root
 
-Six diagnostics, which print their JSON line and the card instead:
+Seven diagnostics, which print their JSON line and the card instead:
 ``--windows DIR`` times phase 3's prefill and decode step, store and
-fetch per medium (and the flash wrapper's host time, and the paged
-kernel at five shapes) of the
-checkout at DIR, so that two checkouts are compared in one call with one
+fetch per medium (and the flash wrapper's host time, the paged kernel
+at five shapes, and, in a checkout with the kernels as operators, the
+host time the operator dispatch adds a call and to llama32-3b's walls)
+of the checkout at DIR, so that two checkouts are compared in one call with one
 yardstick; ``--train DIR`` runs phase 7b's training of the checkout at
 DIR (each trained arch's losses, step walls, launches and a profiled
 step's busy time); ``--flash-ablation``,
 ``--rwkv6-ablation``, ``--ssd-backward-ablation`` and
 ``--rwkv6-backward-ablation`` time the bf16 flash kernel, the chunked
 rwkv6 kernel, the chunked SSD backward's walk or the chunked rwkv6
-backward built with one part switched off at a time.
+backward built with one part switched off at a time; ``--dist`` runs
+phase 9 alone.
 """
 from __future__ import annotations
 
@@ -2538,11 +2558,310 @@ def phase_flags(torch, base: dict) -> dict:
 # ----------------------------------------------------------------------
 # diagnostics (not run by default)
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# phase 9: the collectives on NCCL, the dry run, and the dry run against
+# the card
+# ----------------------------------------------------------------------
+# llama32-3b and ASSIGNED_ARCHS, the longest runs first (45-90 s each on
+# the card's host)
+DRYRUN_SINGLE = ("moonshot-v1-16b-a3b", "zamba2-2.7b", "rwkv6-3b",
+                 "yi-34b", "deepseek-moe-16b", "command-r-35b",
+                 "qwen3-1.7b", "seamless-m4t-medium", "qwen2-0.5b",
+                 "llama32-3b", "internvl2-2b")
+DRYRUN_MULTI = ("llama32-3b", "qwen2-0.5b")
+DRYRUN_REQUIRED = ("llama32-3b", "qwen2-0.5b", "qwen3-1.7b", "yi-34b",
+                   "command-r-35b")     # the dense family: every cell ok
+DRYRUN_WORKERS = 8                      # the host's cores, idle by then
+DRYRUN_TIMEOUT_S = 600
+# the H100 SXM's data sheet: bf16 dense peak and HBM rate (PEAK_FLOPS,
+# PEAK_BYTES), NVLink 4 at 18 links x 50 GB/s (both directions), 80 GB
+H100_CHIP = dict(peak_flops=PEAK_FLOPS["bfloat16"], hbm_bw=PEAK_BYTES,
+                 ici_bw_per_link=50e9, ici_links=18, hbm_gb=80.0)
+
+
+class DryRuns:
+    """9b's dry runs, ``python -m repro_torch.launch.dryrun`` of one arch
+    each, DRYRUN_WORKERS at a time with no card visible (they run on fake
+    tensors), started after every phase that times the card, so that no
+    wall is taken on a loaded host. ``results`` waits for them; on any
+    exit every process still running is killed."""
+
+    def __init__(self, src: Path):
+        import concurrent.futures
+        import os
+        import tempfile
+        self._dir = tempfile.TemporaryDirectory(prefix="dryrun-")
+        self._procs = []
+        self._env = dict(os.environ, PYTHONPATH=str(src),
+                         CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.jobs = [(a, "single", []) for a in DRYRUN_SINGLE] + [
+            (a, "multi", ["--no-analyze"]) for a in DRYRUN_MULTI]
+        self._pool = concurrent.futures.ThreadPoolExecutor(DRYRUN_WORKERS)
+        self._futures = [self._pool.submit(self._run, *job)
+                         for job in self.jobs]
+
+    def _run(self, arch: str, mesh: str, extra: list):
+        out = Path(self._dir.name) / f"{arch}-{mesh}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--mesh", mesh, "--out", str(out), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=self._env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        self._procs.append(proc)
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += f"\n(killed after {DRYRUN_TIMEOUT_S} s)"
+        records = json.loads(out.read_text()) if out.exists() else None
+        return arch, mesh, text, records, time.perf_counter() - t0
+
+    def results(self) -> list:
+        try:
+            return [f.result() for f in self._futures]
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        for proc in self._procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._dir.cleanup()
+
+
+def nccl_collectives(torch) -> None:
+    """9a: the five collectives of ``repro_torch.dist.collectives`` on
+    NCCL in the world the machine has (one rank a card), each against
+    its analytic result there."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as C
+    n = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(4, 6, 8, generator=g, device="cuda")
+        tree = {"a": torch.randn(1000, generator=g, device="cuda"),
+                "b": torch.randn(37, generator=g, device="cuda").bfloat16()}
+        checks = {
+            "ring_pass": torch.equal(C.ring_pass(x), x),
+            "ring_allgather": torch.equal(C.ring_allgather(x), x),
+            "halo_exchange": torch.equal(
+                C.halo_exchange(x, halo=2, seq_axis=1),
+                torch.cat([torch.zeros_like(x[:, :2]), x], 1)),
+            "bucketed_psum": all(torch.equal(v, tree[k]) for k, v in
+                                 C.bucketed_psum(tree, bucket_bytes=256)
+                                 .items()),
+        }
+        mean, err = C.compressed_psum(tree)
+        # one rank: the mean is the dequantized value, and value = mean +
+        # err up to the cast of the mean to the leaf's dtype
+        checks["compressed_psum"] = all(
+            float((mean[k].float() + err[k] - tree[k].float()).abs().max())
+            <= (0 if tree[k].dtype == torch.float32 else 1e-2)
+            * float(tree[k].float().abs().max()) + 1e-6 for k in tree)
+        torch.cuda.synchronize()
+        log(f"9a NCCL, world of {dist.get_world_size()} (this machine has "
+            f"{n} card{'s' if n > 1 else ''}): " + ", ".join(
+                f"{k} {'ok' if v else 'WRONG'}" for k, v in checks.items())
+            + "; a two-rank NCCL world needs a second card (NCCL refuses "
+            "two ranks on one GPU)")
+        require(all(checks.values()), f"9a collectives on NCCL: {checks}")
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_results(runs: DryRuns) -> dict:
+    """9b: every record's line as the reference prints it; fails unless
+    every applicable cell of DRYRUN_REQUIRED is ok on 16x16 and every
+    DRYRUN_MULTI cell on 2x16x16. Other families' failures are logged
+    with their error."""
+    recs, bad = [], []
+    for arch, mesh, text, records, secs in runs.results():
+        for line in text.splitlines():
+            if line.startswith(("[ OK ]", "[SKIP]", "[FAIL]")):
+                log(f"9b {line}")
+        log(f"9b {arch} {mesh}: {secs:.1f} s")
+        if records is None:
+            log(f"9b {arch} {mesh}: no records; output tail:\n{text[-3000:]}")
+            bad.append(f"{arch} {mesh}: no records")
+            continue
+        for r in records:
+            recs.append(r)
+            if r["status"] == "fail":
+                log(f"9b FAIL {r['arch']} {r['shape']} {r['mesh']}: "
+                    f"{r['error']}")
+                if r["arch"] in DRYRUN_REQUIRED or mesh == "multi":
+                    bad.append(f"{r['arch']} {r['shape']} {r['mesh']}")
+    for arch in DRYRUN_REQUIRED:
+        cells = [r for r in recs if r["arch"] == arch
+                 and r["mesh"] == "16x16"]
+        if len(cells) != 4:
+            bad.append(f"{arch} 16x16: {len(cells)} of 4 cells")
+    require(not bad, f"9b dry-run cells not ok: {bad}")
+    return {f"{r['arch']} {r['shape']} {r['mesh']}": {
+        k: r[k] for k in ("status", "argument_bytes", "temp_bytes",
+                          "compile_s", "roofline") if k in r}
+        for r in recs}
+
+
+def dryrun_against_card(torch) -> dict:
+    """9c: the dry run of llama32-3b's train step at 7b's shape on the
+    one-device mesh, against the same step on the card: argument bytes
+    equal to the real arguments', the fake flop count equal to
+    ``FlopCounterMode`` over the real step, MemTracker's peak beside
+    ``max_memory_allocated``, and the roofline's step time (the H100's
+    data sheet rates) beside the measured wall."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.costs import ChipSpec
+    from repro_torch.dist.hlo_analysis import RooflineTerms
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.steps import build_step
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw, tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    shape = InputShape("card", TRAIN_S, TRAIN_B, "train")
+    mesh = make_host_mesh(device_type="cuda")
+    t0 = time.perf_counter()
+    fake = trace_step(cfg, shape, mesh, track_memory=True)
+    fake_s = time.perf_counter() - t0
+    bundle = build_step("train", cfg, mesh, shape)
+    params = bundle.model.init(torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+    state = adamw(1e-3).init(params)
+    data = SyntheticLM(cfg, TRAIN_B, TRAIN_S)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             data.next_batch().items()}
+    real_args = (params, state, batch)
+    real_bytes = sum(t.numel() * t.element_size()
+                     for a in real_args for t in tree_leaves(a))
+    with FlopCounterMode(display=False) as fc:
+        bundle.fn(*real_args)
+    torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bundle.fn(*real_args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    c = fake["counts"]
+    chip = dataclasses.replace(ChipSpec(), **H100_CHIP)
+    terms = RooflineTerms(flops=c.flops, hbm_bytes=c.bytes,
+                          collective_bytes=0, n_chips=1, chip=chip)
+    wall = statistics.median(walls)
+    log(f"9c {TRAIN_ARCH} train {TRAIN_B} x {TRAIN_S} bf16, one-device "
+        f"mesh: dry run {fake_s:.1f} s on fake tensors; argument bytes "
+        f"{fake['argument_bytes']} (dry run) vs {real_bytes} (the real "
+        f"arguments on the card); flops {c.flops} (dry run) vs {real_flops} "
+        f"(FlopCounterMode over the real step); MemTracker peak "
+        f"{fake['peak_bytes'] / 2**30:.2f} GiB vs max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; roofline at the H100 data sheet's rates: "
+        f"compute {terms.compute_s * 1e3:.1f} ms, memory "
+        f"{terms.memory_s * 1e3:.1f} ms ({c.bytes / 1e9:.1f} GB counted), "
+        f"step {terms.step_time_s * 1e3:.1f} ms ({terms.dominant}) vs the "
+        f"measured wall {wall * 1e3:.1f} ms (median of "
+        f"{[round(w * 1e3, 1) for w in walls]})")
+    require(fake["argument_bytes"] == real_bytes,
+            f"9c argument bytes {fake['argument_bytes']} != {real_bytes}")
+    require(c.flops == real_flops, f"9c flops {c.flops} != {real_flops}")
+    del params, state, batch, real_args, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(argument_bytes=fake["argument_bytes"], flops=c.flops,
+                memtracker_peak=fake["peak_bytes"], max_memory=peak,
+                roofline_step_s=terms.step_time_s, wall_s=wall, walls=walls)
+
+
+def dtensor_counts() -> dict:
+    """9c: the dry run's counter on DTensors in this torch, on a fake
+    2-rank mesh: flash's forward operator on q [1, 8, 4, 16] and k, v
+    [1, 8, 2, 16] sharded on heads, and x [8, 16] (columns sharded) times
+    w [16, 8] (rows sharded) made whole. One rank's count, written out:
+    flash over its 2 query heads and 36 causal pairs, 4 * 2 * 16 * 36
+    flops, reading q (1024 bytes), k and v (512 each) and writing 1024;
+    the local [8, 8] x [8, 8] product, 2 * 8 * 8 * 8 flops and 3 * 256
+    bytes; one all-reduce of 256 bytes. DTensor's bookkeeping and its
+    metadata queries count nothing (the 9b cells rest on that)."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.dist.hlo_analysis import count
+    from repro_torch.kernels.flash_prefill import flash_fwd
+    dist.init_process_group("fake", rank=0, world_size=2, store=FakeStore())
+    try:
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("model",))
+
+        def step(q, k, v, x, w):
+            return (flash_fwd(q, k, v, True, 0, 0),
+                    (x @ w).redistribute(mesh, [Replicate()]))
+        with FakeTensorMode():
+            def local(pl, *shape):
+                return DTensor.from_local(torch.empty(*shape), mesh, [pl],
+                                          run_check=False)
+            args = (local(Shard(2), 1, 8, 2, 16),
+                    local(Shard(2), 1, 8, 1, 16),
+                    local(Shard(2), 1, 8, 1, 16),
+                    local(Shard(1), 8, 8), local(Shard(0), 8, 8))
+        _, c = count(step, *args)
+    finally:
+        dist.destroy_process_group()
+    got = dict(flops=c.flops, bytes=c.bytes,
+               collectives=dict(c.collectives.bytes_by_kind),
+               counts=dict(c.collectives.count_by_kind))
+    want = dict(flops=4 * 2 * 16 * 36 + 2 * 8 * 8 * 8,
+                bytes=(1024 + 2 * 512 + 1024) + 3 * 256,
+                collectives={"all-reduce": 256}, counts={"all-reduce": 1})
+    log(f"9c the counter on DTensors (fake 2-rank mesh, torch "
+        f"{torch.__version__}): {got} (written out: {want})")
+    require(got == want, f"9c counts on DTensors {got} != {want}")
+    return got
+
+
+def phase_dist(torch) -> dict:
+    """9a, 9c, then 9b: the card's checks first, the dry runs last."""
+    nccl_collectives(torch)
+    counted = dtensor_counts()
+    card = dryrun_against_card(torch)
+    t0 = time.perf_counter()
+    runs = DryRuns(SRC)
+    cells = dryrun_results(runs)
+    log(f"9b {len(runs.jobs)} dry runs, {DRYRUN_WORKERS} at a time: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(cells=cells, card=card, dtensor_counts=counted)
+
+
+def dist_only(torch) -> dict:
+    """``--dist``: phase 9 alone."""
+    return phase_dist(torch)
+
+
 def windows_only(torch) -> dict:
     """``--windows DIR``: phase 3's prefill and decode-step times of each
     arch, its handoff's store and fetch per medium, the flash wrapper's
-    host time at the main shape and the paged kernel's times
-    (``paged_windows``), for the
+    host time at the main shape, the paged kernel's times
+    (``paged_windows``) and the operator dispatch's host cost
+    (``operator_cost`` a call, and llama32-3b's walls through the
+    operators and past them, ``operator_walls``, where the checkout has
+    the operators), for the
     checkout whose ``src`` is on the path, with this script's yardsticks.
     Run on two checkouts in one call, it compares them like for like."""
     from repro_torch.configs import get_config
@@ -2559,6 +2878,9 @@ def windows_only(torch) -> dict:
     log(f"flash main bfloat16: wrapper host time "
         f"{out['flash_wrapper_host_ms']:.4f} ms per call")
     out["paged"] = paged_windows(torch, g)
+    from repro_torch.kernels import paged_decode
+    if hasattr(paged_decode, "paged_op"):   # a checkout with the operators
+        out["operator_cost"] = operator_cost(torch, g, (q, k, v))
     for arch in ARCHS:
         cfg = get_config(arch)
         try:
@@ -2575,6 +2897,9 @@ def windows_only(torch) -> dict:
                                                   prompt, prompt[:N_REQ])
         out[arch] = window_times(torch, prefill, step)
         log_windows(arch, out[arch])
+        if arch == "llama32-3b" and "operator_cost" in out:
+            out[arch]["operator_walls"] = operator_walls(torch, arch,
+                                                         prefill, step)
         out[arch]["transfer"] = transfer_times(torch, payload)
         log(f"{arch} store / fetch ms per medium: " + ", ".join(
             f"{m} {t[0]:.3f} / {t[1]:.3f}"
@@ -2582,6 +2907,83 @@ def windows_only(torch) -> dict:
         del model, params, prefill, step
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def operator_cost(torch, g, qkv, rounds: int = 7) -> dict:
+    """The host time a call that the operator dispatch adds: flash's
+    forward at the main prefill shape and paged at the main decode shape,
+    each called through its ``torch.ops.repro_torch`` operator and
+    through the CUDA implementation the operator dispatches to, in turns
+    (``rounds`` of ``wrapper_host_ms``, medians), in ms."""
+    from repro_torch.kernels import flash_prefill, paged_decode
+    q, k, v = qkv
+    args = paged_inputs(torch, g, torch.bfloat16, N_REQ, 24, 8, 128, 16,
+                        [1025, 1040, 1049, 1056])
+    pairs = {
+        "flash": (lambda: flash_prefill.flash_fwd(q, k, v, True, 0, 0),
+                  lambda: flash_prefill._forward(q, k, v, True, 0, 0)),
+        "paged": (lambda: paged_decode.paged_op(*args),
+                  lambda: paged_decode._launch(*args))}
+    out = {}
+    for name, (op, direct) in pairs.items():
+        times = {"operator": [], "direct": []}
+        for _ in range(rounds):
+            times["operator"].append(wrapper_host_ms(torch, op, 200))
+            times["direct"].append(wrapper_host_ms(torch, direct, 200))
+        med = {k: statistics.median(t) for k, t in times.items()}
+        out[name] = dict(med, added=med["operator"] - med["direct"])
+        log(f"{name} operator dispatch: {med['operator']:.4f} ms a call "
+            f"through torch.ops.repro_torch, {med['direct']:.4f} ms calling "
+            f"its CUDA implementation directly: +{out[name]['added'] * 1e3:.1f}"
+            f" us a call (medians of {rounds} turns of 200 calls)")
+    return out
+
+
+@contextlib.contextmanager
+def direct_route():
+    """The flash and paged wrappers call their CUDA implementations
+    straight, past the operator dispatch: the route before the kernels
+    were operators."""
+    from repro_torch.kernels import flash_prefill, paged_decode
+    saved = flash_prefill.flash_fwd, paged_decode.paged_op
+    flash_prefill.flash_fwd = flash_prefill._forward
+    paged_decode.paged_op = paged_decode._launch
+    try:
+        yield
+    finally:
+        flash_prefill.flash_fwd, paged_decode.paged_op = saved
+
+
+def operator_walls(torch, arch: str, prefill, step, rounds: int = 10
+                   ) -> dict:
+    """Phase 3's prefill and decode-step walls through the operators and
+    through ``direct_route``, in one process, in ``rounds`` turns whose
+    order alternates (``host_ms`` of 5 calls each): the operator
+    dispatch's share of the walls, free of the spread between processes.
+    Medians and quartiles in ms."""
+    out = {}
+    for name, fn in (("prefill", prefill), ("decode", step)):
+        times = {"operator": [], "direct": []}
+        for r in range(rounds):
+            for side in (("operator", "direct") if r % 2 == 0
+                         else ("direct", "operator")):
+                with direct_route() if side == "direct" else \
+                        contextlib.nullcontext():
+                    times[side].append(host_ms(torch, fn))
+        q = {k: statistics.quantiles(t, n=4) for k, t in times.items()}
+        med = {k: statistics.median(t) for k, t in times.items()}
+        out[name] = dict(times=times, median=med, quartiles=q,
+                         added=med["operator"] - med["direct"],
+                         wins=sum(a > b for a, b in zip(times["operator"],
+                                                        times["direct"])))
+        log(f"{arch} {name} wall through the operators / straight to the "
+            f"CUDA implementations, {rounds} alternating turns in one "
+            f"process: medians {med['operator']:.3f} / {med['direct']:.3f}"
+            f" ms ({100 * out[name]['added'] / med['direct']:+.2f}%), "
+            f"quartiles {[round(x, 3) for x in q['operator']]} / "
+            f"{[round(x, 3) for x in q['direct']]}; the operators slower "
+            f"in {out[name]['wins']} of {rounds} turns")
     return out
 
 
@@ -2882,6 +3284,9 @@ def main() -> int:
     ap.add_argument("--rwkv6-backward-ablation", action="store_true",
                     help="only time the chunked rwkv6 backward with parts "
                          "switched off")
+    ap.add_argument("--dist", action="store_true",
+                    help="only run phase 9 (collectives on NCCL, the dry "
+                         "run, the dry run against the card)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2915,7 +3320,7 @@ def main() -> int:
                   rwkv6_ablation if args.rwkv6_ablation else
                   ssd_backward_ablation if args.ssd_backward_ablation else
                   rwkv6_backward_ablation if args.rwkv6_backward_ablation
-                  else None)
+                  else dist_only if args.dist else None)
     if diagnostic is not None:
         fn = diagnostic
         print(json.dumps({"tree": str(src.parent), fn.__name__: fn(torch)}))
@@ -2958,6 +3363,9 @@ def main() -> int:
     for k, n in phase_flags(torch, trained[TRAIN_ARCH]).items():
         counted[k] = counted.get(k, 0) + n
     log(f"phase 8 (perf flags): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dist(torch)
+    log(f"phase 9 (collectives, dry run): {time.perf_counter() - t0:.1f} s")
 
     info = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_prefill.cu",

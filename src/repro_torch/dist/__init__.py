@@ -1,14 +1,16 @@
 """Distribution subsystem, the port of ``repro.dist``.
 
-  fault      atomic checkpoints and the straggler watchdog of the
-             training path
-  opt_flags  the registry of output-preserving perf flags (``REPRO_OPT``)
-  sharding   placement rules for params, batches, decode state and
-             optimizer moments on a ``DeviceMesh`` or an abstract mesh
-
-``collectives`` and ``hlo_analysis`` are not ported yet (ROADMAP,
-queue 1).
+  collectives   ring pass, ring all-gather, halo exchange, bucketed and
+                int8-compressed gradient sums on ``torch.distributed``
+  fault         atomic checkpoints and the straggler watchdog of the
+                training path
+  hlo_analysis  one device's flops, bytes and collectives from a run of
+                the step on fake DTensors, and the three-term roofline
+  opt_flags     the registry of output-preserving perf flags
+                (``REPRO_OPT``)
+  sharding      placement rules for params, batches, decode state and
+                optimizer moments on a ``DeviceMesh`` or an abstract mesh
 """
-from . import fault, opt_flags, sharding
+from . import collectives, fault, hlo_analysis, opt_flags, sharding
 
-__all__ = ["fault", "opt_flags", "sharding"]
+__all__ = ["collectives", "fault", "hlo_analysis", "opt_flags", "sharding"]

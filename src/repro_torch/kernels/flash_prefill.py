@@ -9,25 +9,32 @@ reference trains through ``jax.value_and_grad`` of the plain version.
 Each header says what bounds the kernel on the H100 and how it is laid
 out.
 
-The wrappers take the plain version only for CPU tensors (autograd
-differentiates it there); for a CUDA tensor they launch a kernel or
-raise. ``flash_attention`` goes through the ``FlashAttention`` autograd
-Function (forward kernel, then the backward kernel) only when grad is
-enabled and an input requires it; otherwise it launches the forward
-kernel alone, as serving does. Under grad the forward also keeps each
-query row's log-sum-exp (``flash_attention_with_lse``), which the
-backward kernel reads instead of recomputing it. ``flash_attention.
-launches`` counts the forward kernel's launches,
-``flash_attention.backward_launches`` the backward's.
+Each launch is an operator of the ``repro_torch`` library
+(``kernels/library.py``): ``flash_fwd``, ``flash_fwd_lse`` and
+``flash_bwd``. An operator runs the plain version for CPU tensors (for
+the gradient, autograd of it), launches the kernel or raises for CUDA
+tensors, and gives only shapes for meta and fake ones. ``flash_attention``
+goes through the ``FlashAttention`` autograd Function (the forward
+operator, then the backward one) only when grad is enabled and an input
+requires it (on a real CPU tensor, ``library.on_host``, autograd of the
+plain version itself); otherwise it calls the forward operator alone, as
+serving does. Under grad the forward also keeps each query row's log-sum-exp
+(``flash_attention_with_lse``), which the backward kernel reads instead
+of recomputing it. ``flash_attention.launches`` counts the forward
+kernel's launches, ``flash_attention.backward_launches`` the backward's.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from . import _build
+from .library import define, divides, eager_autograd, fresh, on_host
 from .ref import flash_attention_lse_ref as plain_lse
 from .ref import flash_attention_ref as plain
 
@@ -55,14 +62,13 @@ def check_aligned(name: str, t: torch.Tensor) -> None:
 
 
 def no_backward(name: str, *tensors) -> None:
-    """A kernel with no backward yet raises under grad, instead of
-    returning an output outside the autograd graph."""
+    """A kernel with no backward yet raises under grad, on every device,
+    instead of returning an output outside the autograd graph."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet, "
-                           f"so it cannot run on tensors that require grad "
-                           f"(train this family on the CPU, or run under "
-                           f"torch.no_grad())")
+        raise RuntimeError(f"{name}: the kernel has no backward yet, so it "
+                           f"cannot run on tensors that require grad (run "
+                           f"it under torch.no_grad())")
 
 
 def _check(q, k, v):
@@ -90,15 +96,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   q_offset: int = 0) -> torch.Tensor:
     """q: [B, S, H, hd]; k, v: [B, T, KV, hd] -> [B, S, H, hd]."""
-    if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, window=window,
-                   q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
+        if on_host(q):
+            return plain(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
-    return _forward(q, k, v, causal, window, q_offset)
+    return flash_fwd(q, k, v, causal, window, q_offset)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -110,12 +114,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     that sees no key): what the backward kernel reads. On CUDA tensors
     one launch of the forward kernel (counted in
     ``flash_attention.launches``), outside autograd."""
-    if q.device.type == "cpu":
-        mask = dict(causal=causal, window=window, q_offset=q_offset)
-        return plain(q, k, v, **mask), plain_lse(q, k, **mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
-    return _forward(q, k, v, causal, window, q_offset, with_lse=True)
+    return flash_fwd_lse(q, k, v, causal, window, q_offset)
 
 
 def _padded_rows(S: int) -> int:
@@ -188,13 +187,18 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_with_lse``), for the output gradient ``dout``, in
     q's dtype. On CPU tensors: autograd of the plain version (``out`` and
     ``lse`` unused)."""
-    if q.device.type == "cpu":
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = plain(*qkv, causal=causal, window=window, q_offset=q_offset)
-            return torch.autograd.grad(o, qkv, dout)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return flash_bwd(q, k, v, out, dout, lse, causal, window, q_offset)
+
+
+def _backward_cpu(q, k, v, out, dout, lse, causal, window, q_offset):
+    with eager_autograd(), torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = plain(*qkv, causal=causal, window=window, q_offset=q_offset)
+        grads = torch.autograd.grad(o, qkv, dout)
+    return fresh([g.contiguous() for g in grads], (q, k, v, out, dout))
+
+
+def _backward_cuda(q, k, v, out, dout, lse, causal, window, q_offset):
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
     _check(q, k, v)
     if window < 0 or q_offset < 0:
@@ -229,8 +233,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
-        out, lse = _forward(q, k, v, causal, window, q_offset,
-                            with_lse=True)
+        out, lse = flash_fwd_lse(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset)
         return out
@@ -239,11 +242,116 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, dout, lse=lse, causal=causal, window=window,
-            q_offset=q_offset)
+        dq, dk, dv = flash_bwd(q, k, v, out, dout, lse, causal, window,
+                               q_offset)
         return dq, dk, dv, None, None, None
 
 
 flash_attention.launches = 0
 flash_attention.backward_launches = 0
+
+
+# ----------------------------------------------------------------------
+# the operators
+# ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=256)
+def visible_pairs(S: int, T: int, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """(query row, key) pairs the mask lets through, as in
+    ``ref._flash_logits``: key t is seen by row i when t <= i + q_offset
+    (causal) and t > i + q_offset - window (window > 0)."""
+    qpos = np.arange(S, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos + 1, T) if causal else np.full(S, T)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(S)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _fwd_flops(q, k, v, causal, window, q_offset, *, out_shape=None,
+               **_) -> int:
+    # QK^T and PV over the visible pairs: 2 products x 2 flops a
+    # multiply-add x hd, for each (batch, query head, visible pair)
+    B, S, H, hd = q
+    return 4 * B * H * hd * visible_pairs(S, k[1], causal, window, q_offset)
+
+
+def _bwd_flops(q, k, v, out, dout, lse, causal, window, q_offset, *,
+               out_shape=None, **_) -> int:
+    # QK^T recomputed, then dV = P^T dO, dP = dO V^T, dQ = dS K and
+    # dK = dS^T Q: 5 products over the visible pairs
+    B, S, H, hd = q
+    return 10 * B * H * hd * visible_pairs(S, k[1], causal, window,
+                                           q_offset)
+
+
+def _fwd_rule(q, k, v, causal, window, q_offset, lse: bool):
+    """Replicated; batch on dim 0; heads on dim 2 (lse: dim 1) where the
+    query and kv head counts divide every mesh dim."""
+    static = [None] * 3
+    out = (lambda p, lp: [p, lp]) if lse else (lambda p, lp: [p])
+    R, S0 = Replicate(), Shard(0)
+    rules = [(out(R, R), [R, R, R, *static]),
+             (out(S0, S0), [S0, S0, S0, *static])]
+    if divides(q, q.shape[2], k.shape[2]):
+        S2 = Shard(2)
+        rules.append((out(S2, Shard(1)), [S2, S2, S2, *static]))
+    return rules
+
+
+def _bwd_rule(q, k, v, out, dout, lse, causal, window, q_offset):
+    static = [None] * 3
+    R, S0 = Replicate(), Shard(0)
+    lse_pl = (lambda p: p) if lse is not None else (lambda p: None)
+    rules = [([R] * 3, [R] * 5 + [lse_pl(R), *static]),
+             ([S0] * 3, [S0] * 5 + [lse_pl(S0), *static])]
+    if divides(q, q.shape[2], k.shape[2]):
+        S2 = Shard(2)
+        rules.append(([S2] * 3, [S2] * 5 + [lse_pl(Shard(1)), *static]))
+    return rules
+
+
+def _lse_like(q: torch.Tensor) -> torch.Tensor:
+    """The lse's layout: [B, H, S] f32, on the card a view of S rounded
+    up to 64 rows (``_forward``), else contiguous."""
+    B, S, H, _ = q.shape
+    rows = _padded_rows(S) if q.device.type == "cuda" else S
+    return q.new_empty((B, H, rows), dtype=torch.float32)[..., :S]
+
+
+_MASK_ARGS = "bool causal, int window, int q_offset"
+
+flash_fwd = define(
+    f"flash_fwd(Tensor q, Tensor k, Tensor v, {_MASK_ARGS}) -> Tensor",
+    cpu=lambda q, k, v, causal, window, q_offset: fresh([plain(
+        q, k, v, causal=causal, window=window,
+        q_offset=q_offset).contiguous()], (q, k, v))[0],
+    cuda=lambda q, k, v, causal, window, q_offset: _forward(
+        q, k, v, causal, window, q_offset),
+    fake=lambda q, k, v, causal, window, q_offset: torch.empty_like(
+        q, memory_format=torch.contiguous_format),
+    flops=_fwd_flops,
+    sharding=functools.partial(_fwd_rule, lse=False))
+
+flash_fwd_lse = define(
+    f"flash_fwd_lse(Tensor q, Tensor k, Tensor v, {_MASK_ARGS}) "
+    f"-> (Tensor, Tensor)",
+    cpu=lambda q, k, v, causal, window, q_offset: fresh([
+        plain(q, k, v, causal=causal, window=window,
+              q_offset=q_offset).contiguous(),
+        plain_lse(q, k, causal=causal, window=window,
+                  q_offset=q_offset).contiguous()], (q, k, v)),
+    cuda=lambda q, k, v, causal, window, q_offset: _forward(
+        q, k, v, causal, window, q_offset, with_lse=True),
+    fake=lambda q, k, v, causal, window, q_offset: (
+        torch.empty_like(q, memory_format=torch.contiguous_format),
+        _lse_like(q)),
+    flops=_fwd_flops,
+    sharding=functools.partial(_fwd_rule, lse=True))
+
+flash_bwd = define(
+    f"flash_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, "
+    f"Tensor? lse, {_MASK_ARGS}) -> (Tensor, Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda,
+    fake=lambda q, k, v, *_: tuple(
+        torch.empty_like(t, memory_format=torch.contiguous_format)
+        for t in (q, k, v)),
+    flops=_bwd_flops, sharding=_bwd_rule)

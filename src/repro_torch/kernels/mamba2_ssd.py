@@ -19,11 +19,14 @@ and every other shape run the step kernel (two launches).
 ``backward_kernel_for`` says which, from the tensors alone. Each header
 says what bounds the kernel on the H100 and how it is laid out.
 
-The wrappers take the plain version only for CPU tensors (autograd
-differentiates it there); for a CUDA tensor they launch a kernel or
-raise. ``mamba2_ssd`` goes through the ``Mamba2SSD`` autograd Function
-(the forward kernel, then the backward kernel) only when grad is enabled
-and an input requires it; otherwise it launches the forward kernel
+Each is an operator of the ``repro_torch`` library
+(``kernels/library.py``), ``mamba2_ssd`` and ``mamba2_ssd_bwd``: the
+plain version for CPU tensors (for the gradient, autograd of it), a
+kernel or a raise for CUDA tensors, shapes only for meta and fake ones.
+``mamba2_ssd`` goes through the ``Mamba2SSD`` autograd Function (the
+forward operator, then the backward one) only when grad is enabled and
+an input requires it (on a real CPU tensor, ``library.on_host``, autograd
+of the plain version itself); otherwise it calls the forward operator
 alone, as serving does. ``mamba2_ssd.launches`` counts the forward
 kernel's launches, ``mamba2_ssd.backward_launches`` the backward's (both
 routes), ``mamba2_ssd.backward_chunked_launches`` those of the chunked
@@ -35,9 +38,11 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from . import _build
 from .flash_prefill import _DTYPES
+from .library import define, divides, eager_autograd, fresh, on_host
 from .ref import mamba2_ssd_ref as plain
 from .rwkv6_scan import _aligned16
 
@@ -111,10 +116,6 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: [B, T, NH, P]; dt: [B, T, NH] f32; A, D: [NH]; B_mat, C_mat:
     [B, T, N] in x's dtype; state: [B, NH, N, P] f32 (default zeros) ->
     (y [B, T, NH, P] in x's dtype, final state f32)."""
-    if x.device.type == "cpu":
-        return plain(x, dt, A, B_mat, C_mat, D, state)
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba2_ssd: no kernel for {x.device}")
     Bsz, T, NH, P = x.shape
     N = B_mat.shape[-1]
     if state is None:
@@ -124,8 +125,10 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         D = torch.zeros(NH, dtype=torch.float32, device=x.device)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B_mat, C_mat, D, state)):
+        if on_host(x):
+            return plain(x, dt, A, B_mat, C_mat, D, state)
         return Mamba2SSD.apply(x, dt, A, B_mat, C_mat, D, state)
-    return _forward(x, dt, A, B_mat, C_mat, D, state)
+    return scan_op(x, dt, A, B_mat, C_mat, D, state)
 
 
 def _forward(x, dt, A, B_mat, C_mat, D, state):
@@ -172,17 +175,24 @@ def mamba2_ssd_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         D = torch.zeros(NH, dtype=torch.float32, device=x.device)
     if ds_out is None:
         ds_out = torch.zeros_like(state, dtype=torch.float32)
-    if x.device.type == "cpu":
-        ins = [t.detach().requires_grad_()
-               for t in (x, dt, A, B_mat, C_mat, D, state)]
-        with torch.enable_grad():
-            outs = plain(*ins)
-            grads = torch.autograd.grad(outs, ins, (dy, ds_out),
-                                        allow_unused=True)
-        return tuple(torch.zeros_like(t) if g is None else g
-                     for t, g in zip(ins, grads))
-    if x.device.type != "cuda":
-        raise ValueError(f"mamba2_ssd: no kernel for {x.device}")
+    return backward_op(x, dt, A, B_mat, C_mat, D, state, dy, ds_out)
+
+
+def _backward_cpu(x, dt, A, B_mat, C_mat, D, state, dy, ds_out):
+    ins = [t.detach().requires_grad_()
+           for t in (x, dt, A, B_mat, C_mat, D, state)]
+    with eager_autograd(), torch.enable_grad():
+        outs = plain(*ins)
+        grads = torch.autograd.grad(outs, ins, (dy, ds_out),
+                                    allow_unused=True)
+    return fresh([torch.zeros_like(t) if g is None else g.contiguous()
+                  for t, g in zip(ins, grads)],
+                 (x, dt, A, B_mat, C_mat, D, state, dy, ds_out))
+
+
+def _backward_cuda(x, dt, A, B_mat, C_mat, D, state, dy, ds_out):
+    Bsz, T, NH, P = x.shape
+    N = B_mat.shape[-1]
     _check(x, dt, A, B_mat, C_mat, D, state)
     if dy.shape != x.shape or dy.dtype != x.dtype or \
             ds_out.shape != state.shape or ds_out.dtype != torch.float32:
@@ -242,13 +252,13 @@ class Mamba2SSD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B_mat, C_mat, D, state):
-        y, s_out = _forward(x, dt, A, B_mat, C_mat, D, state)
+        y, s_out = scan_op(x, dt, A, B_mat, C_mat, D, state)
         ctx.save_for_backward(x, dt, A, B_mat, C_mat, D, state)
         return y, s_out
 
     @staticmethod
     def backward(ctx, dy, ds_out):
-        return mamba2_ssd_backward(*ctx.saved_tensors, dy, ds_out)
+        return backward_op(*ctx.saved_tensors, dy, ds_out)
 
 
 def backward_occupancy() -> dict:
@@ -268,3 +278,76 @@ def backward_occupancy() -> dict:
 mamba2_ssd.launches = 0
 mamba2_ssd.backward_launches = 0
 mamba2_ssd.backward_chunked_launches = 0
+
+
+# ----------------------------------------------------------------------
+# the operators
+# ----------------------------------------------------------------------
+def _fwd_flops(x, dt, A, B_mat, C_mat, D, state, *, out_shape=None,
+               **_) -> int:
+    # per step, head and batch row: S <- exp(A dt) S + B (dt x)^T (3 N P,
+    # and P for dt x), y = S^T C (2 N P) and D x (2 P)
+    Bsz, T, NH, P = x
+    N = B_mat[-1]
+    return Bsz * T * NH * (5 * N * P + 3 * P)
+
+
+def _bwd_flops(x, dt, A, B_mat, C_mat, D, state, dy, ds_out, *,
+               out_shape=None, **_) -> int:
+    # the forward's state recomputed (3 N P), the adjoint state
+    # G <- exp(A dt) G + C dy^T (3 N P), dx and dB from G (2 N P each),
+    # dC from S (2 N P), ddt and dA from S o G and G B (4 N P), and the
+    # skip's and dt x's gradients (8 P), per step, head and batch row
+    Bsz, T, NH, P = x
+    N = B_mat[-1]
+    return Bsz * T * NH * (16 * N * P + 8 * P)
+
+
+def _fwd_rule(x, dt, A, B_mat, C_mat, D, state):
+    """Replicated; batch on dim 0 (A and D replicated); heads on x's and
+    dt's dim 2 (A's and D's dim 0, the state's dim 1, B and C replicated:
+    one group serves every head) where NH divides every mesh dim."""
+    R, S0 = Replicate(), Shard(0)
+    rules = [([R, R], [R] * 7), ([S0, S0], [S0, S0, R, S0, S0, R, S0])]
+    if divides(x, x.shape[2]):
+        S1, S2 = Shard(1), Shard(2)
+        rules.append(([S2, S1], [S2, S2, S0, R, R, S0, S1]))
+    return rules
+
+
+def _bwd_rule(x, dt, A, B_mat, C_mat, D, state, dy, ds_out):
+    """As the forward's; dA and dD sum over the batch and dB and dC over
+    the heads, so those are partial sums where their sum is split."""
+    R, S0, P = Replicate(), Shard(0), Partial()
+    rules = [([R] * 7, [R] * 9),
+             ([S0, S0, P, S0, S0, P, S0],
+              [S0, S0, R, S0, S0, R, S0, S0, S0])]
+    if divides(x, x.shape[2]):
+        S1, S2 = Shard(1), Shard(2)
+        rules.append(([S2, S2, S0, P, P, S0, S1],
+                      [S2, S2, S0, R, R, S0, S1, S2, S1]))
+    return rules
+
+
+scan_op = define(
+    "mamba2_ssd(Tensor x, Tensor dt, Tensor A, Tensor B_mat, Tensor C_mat, "
+    "Tensor D, Tensor state) -> (Tensor, Tensor)",
+    cpu=lambda x, dt, A, B_mat, C_mat, D, state: fresh(
+        [t.contiguous() for t in plain(x, dt, A, B_mat, C_mat, D, state)],
+        (x, dt, A, B_mat, C_mat, D, state)),
+    cuda=_forward,
+    fake=lambda x, dt, A, B_mat, C_mat, D, state: (
+        torch.empty_like(x, memory_format=torch.contiguous_format),
+        torch.empty_like(state, dtype=torch.float32,
+                         memory_format=torch.contiguous_format)),
+    flops=_fwd_flops, sharding=_fwd_rule)
+
+backward_op = define(
+    "mamba2_ssd_bwd(Tensor x, Tensor dt, Tensor A, Tensor B_mat, "
+    "Tensor C_mat, Tensor D, Tensor state, Tensor dy, Tensor ds_out) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda,
+    fake=lambda x, dt, A, B_mat, C_mat, D, state, *_: tuple(
+        torch.empty_like(t, memory_format=torch.contiguous_format)
+        for t in (x, dt, A, B_mat, C_mat, D, state)),
+    flops=_bwd_flops, sharding=_bwd_rule)

@@ -1,14 +1,18 @@
 """Dispatch over the hand-written CUDA kernels and their plain versions.
 
-Every model/engine call site goes through this module. Backends:
+Every model/engine call site goes through this module, and from here
+through the kernels' operators (``torch.ops.repro_torch.*``,
+``kernels/library.py``), which the dispatcher routes by device. Backends:
 
   auto  -> by the tensor's device: 'cuda' for a CUDA tensor, 'ref' for
-           a CPU tensor
+           a CPU tensor, the operators' shapes for a meta tensor
   ref   -> plain torch (kernels/ref.py); CPU tensors only
   cuda  -> the hand-written CUDA kernel; CUDA tensors only
 
 A CUDA tensor never reaches ``ref`` and a CPU tensor never reaches a
-kernel: an explicit backend that does not match the device raises.
+kernel: an explicit backend that does not match the device raises. A
+DTensor's device is its mesh's; fake tensors (``FakeTensorMode``) take
+their device's backend, and the operators give their shapes.
 """
 from __future__ import annotations
 
@@ -20,7 +24,6 @@ import torch.nn.functional as F
 from . import flash_prefill as _flash
 from . import mamba2_ssd as _ssd
 from . import paged_decode as _paged
-from . import ref
 from . import rwkv6_scan as _rwkv
 
 BACKENDS = ("auto", "ref", "cuda")
@@ -32,26 +35,22 @@ def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:
         raise ValueError(f"unknown kernel backend {b!r}; one of {BACKENDS}")
     dev = x.device.type
     if b == "auto":
-        b = {"cuda": "cuda", "cpu": "ref"}.get(dev, b)
-    if (b, dev) not in (("ref", "cpu"), ("cuda", "cuda")):
+        b = {"cuda": "cuda", "cpu": "ref", "meta": "meta"}.get(dev, b)
+    if (b, dev) not in (("ref", "cpu"), ("cuda", "cuda"), ("meta", "meta")):
         raise ValueError(f"kernel backend {b!r} does not take {dev} tensors")
     return b
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, backend: Optional[str] = None):
-    if resolve_backend(backend, q) == "ref":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
+    resolve_backend(backend, q)
     return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
 
 
 def paged_attention(q, k_pages, v_pages, block_table, seq_lens, *,
                     backend: Optional[str] = None):
-    if resolve_backend(backend, q) == "ref":
-        return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
-                                       seq_lens)
+    resolve_backend(backend, q)
     return _paged.paged_attention(q, k_pages, v_pages, block_table, seq_lens)
 
 
@@ -74,7 +73,7 @@ def rwkv6(r, k, v, w, u, state, *, chunk: int = 64,
     state as it is, and y is cut back to T. The kernel itself takes any
     T, so on the main path (T a multiple of the chunk) nothing is
     copied."""
-    b = resolve_backend(backend, r)
+    resolve_backend(backend, r)
     if state is None:
         B, _, NH, hd = r.shape
         state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
@@ -82,8 +81,7 @@ def rwkv6(r, k, v, w, u, state, *, chunk: int = 64,
     T = r.shape[1]
     rp, kp, vp = (_pad_seq(x, chunk) for x in (r, k, v))
     wp = _pad_seq(w, chunk, value=1.0)
-    scan = ref.rwkv6_scan_ref if b == "ref" else _rwkv.rwkv6_scan
-    y, s = scan(rp, kp, vp, wp, u, state)
+    y, s = _rwkv.rwkv6_scan(rp, kp, vp, wp, u, state)
     return y[:, :T], s
 
 
@@ -102,15 +100,14 @@ def mamba2(x, dt, A, B_mat, C_mat, D, state, *, chunk: int = 128,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Padding contract as for ``rwkv6``: dt=0 pads are a no-op (decay
     1, no input)."""
-    b = resolve_backend(backend, x)
+    resolve_backend(backend, x)
     if state is None:
         B, _, NH, P = x.shape
         state = torch.zeros((B, NH, B_mat.shape[-1], P),
                             dtype=torch.float32, device=x.device)
     T = x.shape[1]
     xp, dtp, Bp, Cp = (_pad_seq(t, chunk) for t in (x, dt, B_mat, C_mat))
-    scan = ref.mamba2_ssd_ref if b == "ref" else _ssd.mamba2_ssd
-    y, s = scan(xp, dtp, A, Bp, Cp, D, state)
+    y, s = _ssd.mamba2_ssd(xp, dtp, A, Bp, Cp, D, state)
     return y[:, :T], s
 
 
@@ -123,6 +120,7 @@ def mamba2_step(x, dt, A, B_mat, C_mat, D, state
     state = (decay[..., None, None] * state
              + B_mat.float()[:, None, :, None]
              * (dtf[..., None] * xf)[:, :, None, :])
-    y = torch.einsum("bhnp,bn->bhp", state, C_mat.float())
+    # a product and a sum, which DTensor shards without a reshape
+    y = (state * C_mat.float()[:, None, :, None]).sum(2)
     y = y + D.float()[None, :, None] * xf
     return y.to(x.dtype), state

@@ -10,8 +10,10 @@ sizes the host knows, never from ``seq_lens``, which lives on the card),
 one block per (run, kv head, sequence), and the last run of a row to
 finish merges the runs' partial softmax states in the same launch. Its
 header says what bounds it on the H100 and how it is laid out. The
-wrapper takes the plain version only for CPU tensors; for a CUDA tensor
-it launches the kernel or raises.
+launch is the operator ``repro_torch::paged_attention``
+(``kernels/library.py``): the plain version for CPU tensors, the kernel
+(or a raise) for CUDA tensors, shapes only for meta and fake ones. It
+has no backward, on any device.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from . import _build
 from .flash_prefill import _DTYPES, check_aligned, no_backward
+from .library import define, divides, fresh
 from .ref import paged_attention_ref as plain
 
 HEAD_DIMS = (32, 64, 128)   # a multiple of 32: each lane holds hd/32 dims
@@ -137,11 +141,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: [B, H, hd]; k_pages/v_pages: [P, page, KV, hd];
     block_table: [B, max_pages] int32; seq_lens: [B] int32 -> [B, H, hd].
     Lengths past ``max_pages * page`` are clamped to it."""
-    if q.device.type == "cpu":
-        return plain(q, k_pages, v_pages, block_table, seq_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: no kernel for {q.device}")
     no_backward("paged_attention", q, k_pages, v_pages)
+    return paged_op(q, k_pages, v_pages, block_table, seq_lens)
+
+
+def _launch(q, k_pages, v_pages, block_table, seq_lens):
     _check(q, k_pages, v_pages, block_table, seq_lens)
     B, H, hd = q.shape
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
@@ -172,3 +176,38 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+# ----------------------------------------------------------------------
+# the operator
+# ----------------------------------------------------------------------
+def _flops(q, k_pages, v_pages, block_table, seq_lens, *, out_shape=None,
+           **_) -> int:
+    # q.K and p.V over the block table's width (max_pages x page keys; the
+    # lengths live on the card, so the formula counts the table's width):
+    # 2 products x 2 flops a multiply-add x hd, for each (sequence, head)
+    B, H, hd = q
+    return 4 * B * H * hd * block_table[1] * k_pages[1]
+
+
+def _rule(q, k_pages, v_pages, block_table, seq_lens):
+    """Replicated; batch on dim 0 (the pool replicated, since any row's
+    table may name any page); heads on q's dim 1 and the pool's dim 2
+    where the head counts divide every mesh dim."""
+    R, S0 = Replicate(), Shard(0)
+    rules = [([R], [R] * 5), ([S0], [S0, R, R, S0, S0])]
+    if divides(q, q.shape[1], k_pages.shape[2]):
+        rules.append(([Shard(1)], [Shard(1), Shard(2), Shard(2), R, R]))
+    return rules
+
+
+paged_op = define(
+    "paged_attention(Tensor q, Tensor k_pages, Tensor v_pages, "
+    "Tensor block_table, Tensor seq_lens) -> Tensor",
+    cpu=lambda q, k_pages, v_pages, block_table, seq_lens: fresh(
+        [plain(q, k_pages, v_pages, block_table, seq_lens).contiguous()],
+        (q, k_pages, v_pages))[0],
+    cuda=_launch,
+    fake=lambda q, *_: torch.empty_like(
+        q, memory_format=torch.contiguous_format),
+    flops=_flops, sharding=_rule)

@@ -23,12 +23,15 @@ launch. The backward takes the same split (``backward_kernel_for``, from
 the tensors alone): the forward's chunked condition with dy aligned too
 runs the chunked form on the tensor cores (four launches: each chunk's
 terms of the two carries, their scans, one block per chunk, du's sum);
-the rest runs the step kernel (two launches). The wrappers take the
-plain version only for CPU tensors (autograd differentiates it there);
-for a CUDA tensor they launch a kernel or raise. ``rwkv6_scan`` goes
-through the ``RWKV6Scan`` autograd Function (a forward kernel, then the
-backward kernel) only when grad is enabled and an input requires it;
-otherwise it launches the forward kernel alone, as serving does.
+the rest runs the step kernel (two launches). Each is an operator of
+the ``repro_torch`` library (``kernels/library.py``), ``rwkv6_scan`` and
+``rwkv6_scan_bwd``: the plain version for CPU tensors (for the gradient,
+autograd of it), a kernel or a raise for CUDA tensors, shapes only for
+meta and fake ones. ``rwkv6_scan`` goes through the ``RWKV6Scan``
+autograd Function (the forward operator, then the backward one) only
+when grad is enabled and an input requires it (on a real CPU tensor,
+``library.on_host``, autograd of the plain version itself); otherwise it
+calls the forward operator alone, as serving does.
 ``rwkv6_scan.launches`` counts the forward kernels' launches,
 ``rwkv6_scan.backward_launches`` the backward's (both routes),
 ``rwkv6_scan.backward_chunked_launches`` those of the chunked route.
@@ -39,9 +42,11 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from . import _build
 from .flash_prefill import _DTYPES
+from .library import define, divides, eager_autograd, fresh, on_host
 from .ref import rwkv6_scan_ref as plain
 
 HEAD_DIMS = (32, 64, 128)
@@ -127,18 +132,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, w: [B, T, NH, hd]; u: [NH, hd]; state: [B, NH, hd, hd]
     f32 (default zeros) -> (y [B, T, NH, hd] in r's dtype, final state
     f32). On the card w must be f32 (the model's decay is)."""
-    if r.device.type == "cpu":
-        return plain(r, k, v, w, u, state)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
     if state is None:
         B, _, NH, hd = r.shape
         state = torch.zeros((B, NH, hd, hd), dtype=torch.float32,
                             device=r.device)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
+        if on_host(r):
+            return plain(r, k, v, w, u, state)
         return RWKV6Scan.apply(r, k, v, w, u, state)
-    return _forward(r, k, v, w, u, state)
+    return scan_op(r, k, v, w, u, state)
 
 
 def _forward(r, k, v, w, u, state):
@@ -181,16 +184,22 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             device=r.device)
     if ds_out is None:
         ds_out = torch.zeros_like(state, dtype=torch.float32)
-    if r.device.type == "cpu":
-        ins = [t.detach().requires_grad_() for t in (r, k, v, w, u, state)]
-        with torch.enable_grad():
-            outs = plain(*ins)
-            grads = torch.autograd.grad(outs, ins, (dy, ds_out),
-                                        allow_unused=True)
-        return tuple(torch.zeros_like(x) if g is None else g
-                     for x, g in zip(ins, grads))
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
+    return backward_op(r, k, v, w, u, state, dy, ds_out, route)
+
+
+def _backward_cpu(r, k, v, w, u, state, dy, ds_out, route):
+    ins = [t.detach().requires_grad_() for t in (r, k, v, w, u, state)]
+    with eager_autograd(), torch.enable_grad():
+        outs = plain(*ins)
+        grads = torch.autograd.grad(outs, ins, (dy, ds_out),
+                                    allow_unused=True)
+    return fresh([torch.zeros_like(x) if g is None else g.contiguous()
+                  for x, g in zip(ins, grads)],
+                 (r, k, v, w, u, state, dy, ds_out))
+
+
+def _backward_cuda(r, k, v, w, u, state, dy, ds_out, route):
+    B, T, NH, hd = r.shape
     _check(r, k, v, w, u, state)
     if dy.shape != r.shape or dy.dtype != r.dtype or \
             ds_out.shape != state.shape or ds_out.dtype != torch.float32:
@@ -248,13 +257,13 @@ class RWKV6Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
-        y, s_out = _forward(r, k, v, w, u, state)
+        y, s_out = scan_op(r, k, v, w, u, state)
         ctx.save_for_backward(r, k, v, w, u, state)
         return y, s_out
 
     @staticmethod
     def backward(ctx, dy, ds_out):
-        return rwkv6_scan_backward(*ctx.saved_tensors, dy, ds_out)
+        return backward_op(*ctx.saved_tensors, dy, ds_out, None)
 
 
 def backward_occupancy() -> dict:
@@ -274,3 +283,71 @@ def backward_occupancy() -> dict:
 rwkv6_scan.launches = 0
 rwkv6_scan.backward_launches = 0
 rwkv6_scan.backward_chunked_launches = 0
+
+
+# ----------------------------------------------------------------------
+# the operators
+# ----------------------------------------------------------------------
+def _fwd_flops(r, k, v, w, u, state, *, out_shape=None, **_) -> int:
+    # per step, head and batch row: y = S^T r (2 hd^2), the bonus
+    # (r . (u * k)) v (4 hd), and S <- diag(w) S + k v^T (3 hd^2)
+    B, T, NH, hd = r
+    return B * T * NH * (5 * hd * hd + 4 * hd)
+
+
+def _bwd_flops(r, k, v, w, u, state, dy, ds_out, route, *, out_shape=None,
+               **_) -> int:
+    # the forward's state recomputed (3 hd^2), the adjoint state
+    # G <- diag(w) G + r dy^T (3 hd^2), dr = S dy, dk = G v, dv = G^T k
+    # and dw = rowsum(S o G) (2 hd^2 each), and the bonus' gradients
+    # (8 hd), per step, head and batch row
+    B, T, NH, hd = r
+    return B * T * NH * (14 * hd * hd + 8 * hd)
+
+
+def _fwd_rule(r, k, v, w, u, state):
+    """Replicated; batch on dim 0 (u replicated); heads on dim 2 (u's
+    dim 0, the state's dim 1) where NH divides every mesh dim."""
+    R, S0 = Replicate(), Shard(0)
+    rules = [([R, R], [R] * 6), ([S0, S0], [S0] * 4 + [R, S0])]
+    if divides(r, r.shape[2]):
+        S1, S2 = Shard(1), Shard(2)
+        rules.append(([S2, S1], [S2] * 4 + [S0, S1]))
+    return rules
+
+
+def _bwd_rule(r, k, v, w, u, state, dy, ds_out, route):
+    """As the forward's; du sums over the batch, so batch-sharded it is a
+    partial sum."""
+    R, S0 = Replicate(), Shard(0)
+    rules = [([R] * 6, [R] * 8 + [None]),
+             ([S0] * 4 + [Partial(), S0], [S0] * 4 + [R, S0, S0, S0, None])]
+    if divides(r, r.shape[2]):
+        S1, S2 = Shard(1), Shard(2)
+        rules.append(([S2] * 4 + [S0, S1],
+                      [S2] * 4 + [S0, S1, S2, S1, None]))
+    return rules
+
+
+scan_op = define(
+    "rwkv6_scan(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+    "Tensor state) -> (Tensor, Tensor)",
+    cpu=lambda r, k, v, w, u, state: fresh(
+        [t.contiguous() for t in plain(r, k, v, w, u, state)],
+        (r, k, v, w, u, state)),
+    cuda=_forward,
+    fake=lambda r, k, v, w, u, state: (
+        torch.empty_like(r, memory_format=torch.contiguous_format),
+        torch.empty_like(state, dtype=torch.float32,
+                         memory_format=torch.contiguous_format)),
+    flops=_fwd_flops, sharding=_fwd_rule)
+
+backward_op = define(
+    "rwkv6_scan_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+    "Tensor state, Tensor dy, Tensor ds_out, str? route) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_backward_cpu, cuda=_backward_cuda,
+    fake=lambda r, k, v, w, u, state, *_: tuple(
+        torch.empty_like(t, memory_format=torch.contiguous_format)
+        for t in (r, k, v, w, u, state)),
+    flops=_bwd_flops, sharding=_bwd_rule)

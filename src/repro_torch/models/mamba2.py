@@ -135,8 +135,8 @@ def _mamba_in(p, x: torch.Tensor, cfg: ModelConfig,
     new_conv_state = padded[:, T:] if cw > 1 else tail
 
     xc, Bm, Cm = torch.split(conv, [d_in, N, N], dim=-1)
-    xh = xc.reshape(B, T, nh, s.head_dim)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])             # [B,T,nh]
+    xh = L.unflatten(xc, -1, (nh, s.head_dim))
+    dt = F.softplus(L.add_bias(dt_raw.float(), p["dt_bias"]))   # [B,T,nh]
     A = -torch.exp(p["A_log"])
     return xh, dt, A, Bm, Cm, z, new_conv_state
 
@@ -145,7 +145,7 @@ def _mamba_out(p, y: torch.Tensor, z: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Gated RMSNorm (Mamba2's norm-before-out_proj with a silu(z) gate)
     and the output projection. y: the scan's [..., NH, P]."""
-    y = y.reshape(z.shape) * F.silu(z)
+    y = L.flatten(y, -2) * F.silu(z)
     y = L.rms_norm(y, p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"]
 
@@ -176,8 +176,8 @@ def mamba_step(p, x: torch.Tensor, cfg: ModelConfig,
     new_conv_state = window[:, 1:].to(conv_state.dtype)
 
     xc, Bm, Cm = torch.split(conv, [d_in, N, N], dim=-1)
-    xh = xc.reshape(B, nh, s.head_dim)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])             # [B, nh]
+    xh = L.unflatten(xc, -1, (nh, s.head_dim))
+    dt = F.softplus(L.add_bias(dt_raw.float(), p["dt_bias"]))   # [B, nh]
     A = -torch.exp(p["A_log"])
     y, new_ssm = ops.mamba2_step(xh, dt, A, Bm, Cm, p["D"], ssm_state)
     return _mamba_out(p, y, z, cfg), (new_conv_state, new_ssm)
@@ -222,21 +222,10 @@ def shared_attn_step(p, x: torch.Tensor, cache_k, cache_v, pos, cfg,
     ring = window > 0 and cache_k.shape[1] == window
     cache_k = _ring_write(cache_k, k, pos, ring)
     cache_v = _ring_write(cache_v, v, pos, ring)
-    if ring:
-        # every resident slot is within the window by construction
-        B, _, H, hd = q.shape
-        S_c, KV = cache_k.shape[1], cache_k.shape[2]
-        qg = q.reshape(B, KV, H // KV, hd).float()
-        logits = torch.einsum("bkgd,btkd->bkgt", qg,
-                              cache_k.float()) / math.sqrt(hd)
-        valid = (torch.arange(S_c, device=q.device)[None]
-                 <= pos.to(q.device)[:, None])
-        logits = logits.masked_fill(~valid[:, None, None], -1e30)
-        probs = torch.softmax(logits, dim=-1)
-        attn = torch.einsum("bkgt,btkd->bkgd", probs, cache_v.float())
-        attn = attn.reshape(B, 1, H, hd).to(q.dtype)
-    else:
-        attn = L.cached_attention(q, cache_k, cache_v, pos, window=window)
+    # a ring cache holds only slots within the window, by construction:
+    # its mask is the positions up to pos, with no window
+    attn = L.cached_attention(q, cache_k, cache_v, pos,
+                              window=0 if ring else window)
     out = x + L.out_project(p["attn"], attn, cfg)
     return out, cache_k, cache_v
 
@@ -314,14 +303,12 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     ks, vs = torch.stack(ks), torch.stack(vs)        # [G, B, S, KV, hd]
 
     if window and S > s_cache:
-        keep = torch.arange(S - s_cache, S, device=tokens.device)
-        slots = keep % s_cache
-        ks_r = torch.zeros((*ks.shape[:2], s_cache, *ks.shape[3:]),
-                           dtype=ks.dtype, device=ks.device)
-        vs_r = torch.zeros_like(ks_r)
-        ks_r[:, :, slots] = ks[:, :, keep]
-        vs_r[:, :, slots] = vs[:, :, keep]
-        ks, vs = ks_r, vs_r
+        # the last s_cache positions, position t in ring slot t % s_cache:
+        # rolled by the shift, as two slices
+        cut = s_cache - (S - s_cache) % s_cache
+        ks, vs = (torch.cat([t[:, :, S - s_cache + cut:],
+                             t[:, :, S - s_cache:S - s_cache + cut]], dim=2)
+                  for t in (ks, vs))
     elif s_cache > S:
         pad = (0, 0, 0, 0, 0, s_cache - S)
         ks, vs = F.pad(ks, pad), F.pad(vs, pad)

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import opt_flags
@@ -167,7 +168,7 @@ def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     if cfg.moe.num_shared_experts:
         s = p["shared"]
         y = y + (F.silu(xt @ s["w_gate"]) * (xt @ s["w_up"])) @ s["w_down"]
-    return y.reshape(*lead, d).to(x.dtype), aux
+    return L.unflatten(y, 0, tuple(lead)).to(x.dtype), aux
 
 
 def _aux_loss(counts: torch.Tensor, frac_probs: torch.Tensor,
@@ -193,7 +194,23 @@ def route(p: Dict[str, Any], xt: torch.Tensor, cfg: ModelConfig
 def _dispatch(p, xt: torch.Tensor, cfg: ModelConfig, dropless: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort + scatter dispatch over one token group. xt: [T, d] ->
-    (y [T, d], expert_counts [E], mean_probs [E])."""
+    (y [T, d], expert_counts [E], mean_probs [E]).
+
+    On DTensors (a step on a mesh of many devices) every device gathers
+    the group's tokens and every expert, and dispatches them all: DTensor
+    has no sharded strategy for the sort, the rank search and the
+    scatter. The outputs are replicated."""
+    if isinstance(xt, DTensor):
+        mesh = xt.device_mesh
+        rep = [Replicate()] * mesh.ndim
+
+        def full(t):
+            return t.redistribute(mesh, rep).to_local()
+        outs = _dispatch({k: full(v) for k, v in p.items()
+                          if isinstance(v, DTensor)}, full(xt), cfg,
+                         dropless)
+        return tuple(DTensor.from_local(t, mesh, rep, run_check=False)
+                     for t in outs)
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     T, d = xt.shape
     dev = xt.device

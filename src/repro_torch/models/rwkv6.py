@@ -134,7 +134,7 @@ def _mix_inputs(p, x: torch.Tensor, xx: torch.Tensor
     """Data-dependent token-shift lerp (ddlerp) for the 5 mixers."""
     base = x + xx * p["mu_base"].to(x.dtype)
     lora = torch.tanh(base.float() @ p["tm_w1"].float())
-    lora = lora.reshape(*lora.shape[:-1], NUM_MIX, -1)          # [...,5,lm]
+    lora = L.unflatten(lora, -1, (NUM_MIX, lora.shape[-1] // NUM_MIX))
     mix = torch.einsum("...ml,mld->...md", lora,
                        p["tm_w2"].float())                      # [...,5,d]
     mus = p["mu"].float()                                       # [5, d]
@@ -162,18 +162,18 @@ def _time_mix_in(p, x: torch.Tensor, cfg: ModelConfig,
     nh = d // hd
     xx = _shift_seq(x, prev_x) - x
     xw, xk, xv, xr, xg = _mix_inputs(p, x, xx)
-    r = (xr @ p["wr"]).reshape(B, T, nh, hd)
-    k = (xk @ p["wk"]).reshape(B, T, nh, hd)
-    v = (xv @ p["wv"]).reshape(B, T, nh, hd)
+    r = L.unflatten(xr @ p["wr"], -1, (nh, hd))
+    k = L.unflatten(xk @ p["wk"], -1, (nh, hd))
+    v = L.unflatten(xv @ p["wv"], -1, (nh, hd))
     g = F.silu(xg @ p["wg"])
-    w = _decay(p, xw).reshape(B, T, nh, hd)
+    w = L.unflatten(_decay(p, xw), -1, (nh, hd))
     return r, k, v, w, g
 
 
 def _time_mix_out(p, y: torch.Tensor, g: torch.Tensor, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """The scan's y [..., NH, hd] -> ln_x, gate and output projection."""
-    y = _ln_x(y, cfg.norm_eps).reshape(*y.shape[:-2], -1)
+    y = L.flatten(_ln_x(y, cfg.norm_eps), -2)
     y = (y * p["ln_x_scale"].float()
          + p["ln_x_bias"].float()).to(x.dtype)
     return (y * g) @ p["wo"]
@@ -222,11 +222,11 @@ def block_step(p, x: torch.Tensor, cfg: ModelConfig, state: Tuple):
 
     h = L.rms_norm(x, p["norm_tm"], cfg.norm_eps)
     xw, xk, xv, xr, xg = _mix_inputs(p, h, tm_x.to(h.dtype) - h)
-    r = (xr @ p["wr"]).reshape(B, nh, hd)
-    k = (xk @ p["wk"]).reshape(B, nh, hd)
-    v = (xv @ p["wv"]).reshape(B, nh, hd)
+    r = L.unflatten(xr @ p["wr"], -1, (nh, hd))
+    k = L.unflatten(xk @ p["wk"], -1, (nh, hd))
+    v = L.unflatten(xv @ p["wv"], -1, (nh, hd))
     g = F.silu(xg @ p["wg"])
-    w = _decay(p, xw).reshape(B, nh, hd)
+    w = L.unflatten(_decay(p, xw), -1, (nh, hd))
     y, wkv = ops.rwkv6_step(r, k, v, w, p["u"], wkv)
     x = x + _time_mix_out(p, y, g, x, cfg)
     new_tm_x = h

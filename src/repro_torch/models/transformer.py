@@ -145,10 +145,15 @@ def stack_cache(ks: List[torch.Tensor], vs: List[torch.Tensor],
     ks, vs = torch.stack(ks), torch.stack(vs)
     S = ks.shape[2]
     if s_max > S:
-        pad = (0, 0, 0, 0, 0, s_max - S)
-        ks = torch.nn.functional.pad(ks, pad)
-        vs = torch.nn.functional.pad(vs, pad)
+        ks, vs = (_pad_seq(t, s_max - S) for t in (ks, vs))
     return AttnCache(k=ks, v=vs)
+
+
+def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` zero slots after dim 2, by concatenating zeros (DTensor
+    shards a concatenation where it does not shard every pad)."""
+    return torch.cat([t, t.new_zeros((*t.shape[:2], n, *t.shape[3:]))],
+                     dim=2)
 
 
 def prefill_from_embeddings(params, x: torch.Tensor,

@@ -1039,3 +1039,54 @@ def test_train_step_on_host_mesh_is_the_device_path(card):
     assert torch.equal(out["mesh"][0], out["device"][0])
     assert all(torch.equal(a, b) for a, b in zip(out["mesh"][1],
                                                  out["device"][1]))
+
+
+# ----------------------------------------------------------------------
+# the kernels as operators
+# ----------------------------------------------------------------------
+def _op_cases_on_card(card, dtype):
+    def r(*s):
+        return torch.randn(*s, generator=card, device="cuda").to(dtype)
+
+    def f32(*s):
+        return torch.randn(*s, generator=card, device="cuda")
+
+    def u(*s):
+        return torch.rand(*s, generator=card, device="cuda")
+    B, S, H, KV, hd, N = 2, 100, 4, 2, 64, 64
+    q, k, v = r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
+    out, lse = flash_prefill.flash_fwd_lse(q, k, v, True, 0, 0)
+    rk = [r(B, S, H, hd), r(B, S, H, hd), r(B, S, H, hd),
+          0.5 + 0.45 * u(B, S, H, hd), f32(H, hd), f32(B, H, hd, hd)]
+    ssd = [r(B, S, H, hd), 0.1 * u(B, S, H), -u(H), r(B, S, N), r(B, S, N),
+           f32(H), f32(B, H, N, hd)]
+    pages = 8
+    return {
+        "flash_fwd": (flash_prefill.flash_fwd, (q, k, v, True, 0, 0)),
+        "flash_fwd_lse": (flash_prefill.flash_fwd_lse,
+                          (q, k, v, True, 40, 3)),
+        "flash_bwd": (flash_prefill.flash_bwd,
+                      (q, k, v, out, r(B, S, H, hd), lse, True, 0, 0)),
+        "paged_attention": (paged_decode.paged_op, (
+            r(B, H, hd), r(pages, 16, KV, hd), r(pages, 16, KV, hd),
+            torch.arange(pages, dtype=torch.int32,
+                         device="cuda").reshape(B, pages // B),
+            torch.tensor([20, 64], dtype=torch.int32, device="cuda"))),
+        "rwkv6_scan": (rwkv6_scan.scan_op, tuple(rk)),
+        "rwkv6_scan_bwd": (rwkv6_scan.backward_op, (
+            *rk, r(B, S, H, hd), f32(B, H, hd, hd), None)),
+        "mamba2_ssd": (mamba2_ssd.scan_op, tuple(ssd)),
+        "mamba2_ssd_bwd": (mamba2_ssd.backward_op, (
+            *ssd, r(B, S, H, hd), f32(B, H, N, hd))),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operators_opcheck_on_card(card, dtype):
+    """Each kernel operator on CUDA tensors (the hand kernels launch):
+    schema, autograd registration, its fake implementation against the
+    kernel's outputs (shapes, dtypes, strides: the lse's padded rows
+    included), and AOT dispatch."""
+    for name, (op, args) in _op_cases_on_card(card, dtype).items():
+        res = torch.library.opcheck(op.default, args)
+        assert set(res.values()) == {"SUCCESS"}, (name, res)

@@ -13,9 +13,10 @@ with None to the leaf's rank.
 Under the fake process group (256 or 512 ranks, or a world of one, torn
 down after each test) ``make_production_mesh`` and ``make_host_mesh``
 give ``DeviceMesh``es, and the placements shard the local shapes as the
-specs say. A step built on a mesh of more than one device raises when it
-is called; on a ``DeviceMesh`` of one device it runs, bit for bit as on
-the abstract one-device mesh.
+specs say. A step built on a ``DeviceMesh`` of more than one device runs
+on fake DTensors and gives its outputs in the bundle's placements; on an
+abstract mesh of many devices it raises; on a ``DeviceMesh`` of one
+device it runs, bit for bit as on the abstract one-device mesh.
 """
 import numpy as np
 import pytest
@@ -296,14 +297,62 @@ def test_host_mesh():
     assert tuple(mesh.shape) == (1, 1)
 
 
+def _placed(tree, shardings):
+    """(leaf, placements) over a tree and its placements tree."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _placed(tree[k], shardings[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t, s in zip(tree, shardings) for x in _placed(t, s)]
+    return [(tree, shardings)]
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("mesh_name", ["1pod", "4x2"])
-def test_step_on_many_devices_raises(kind, mesh_name):
-    mesh, _ = _meshes(mesh_name)
+def test_step_on_many_devices_traces(kind, mesh_name):
+    """Under the fake process group, on fake DTensors (the dry run's
+    ``trace_step``), each step on a mesh of many devices runs and gives
+    outputs of the global shapes in the placements its bundle names:
+    the trained params and moments in theirs, the decode state in the
+    decode step's state layout (prefill's too), logits and loss whole."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.dryrun import trace_step
+    sizes, names = MESHES[mesh_name]
+    _fake_world(int(np.prod(sizes)))
+    mesh = init_device_mesh("cpu", sizes, mesh_dim_names=names)
     cfg = reduce_for_smoke(get_config("llama32-3b"))
-    bundle = build_step(kind, cfg, mesh, InputShape("t", 32, 16, kind))
-    assert bundle.shardings
-    with pytest.raises(NotImplementedError, match="collectives"):
+    B, S = 16, 32
+    run = trace_step(cfg, InputShape("t", S, B, kind), mesh)
+    bundle, out = run["bundle"], run["outputs"]
+    assert run["counts"].flops > 0 and run["counts"].bytes > 0
+    if kind == "train":
+        params, opt_state, loss = out
+        pairs = (_placed(params, bundle.shardings[0])
+                 + _placed(opt_state.m, bundle.shardings[1].m))
+        assert tuple(loss.shape) == () and loss.placements == \
+            TS.replicated(mesh)
+    else:
+        logits, state = out
+        assert tuple(logits.shape) == (B, cfg.vocab_size)
+        assert not any(p.is_partial() for p in logits.placements)
+        assert tuple(state.k.shape) == (cfg.num_layers, B, S,
+                                        cfg.num_kv_heads, cfg.head_dim)
+        pairs = _placed(state, bundle.shardings[2] if kind == "decode"
+                        else TS.state_shardings(state, mesh))
+    assert len(pairs) > 0
+    for t, pl in pairs:
+        assert isinstance(t, DTensor) and tuple(t.placements) == pl
+
+
+def test_step_on_an_abstract_mesh_of_many_devices_raises():
+    """An ``AbstractMesh`` has no devices: its bundle serves placement
+    only, and its step raises when called."""
+    mesh, _ = _meshes("4x2")
+    cfg = reduce_for_smoke(get_config("llama32-3b"))
+    bundle = build_step("prefill", cfg, mesh,
+                        InputShape("t", 32, 16, "prefill"))
+    with pytest.raises(ValueError, match="DeviceMesh"):
         bundle.fn(*bundle.abstract_args)
 
 
