@@ -285,6 +285,18 @@ class Engine:
     # one scheduler step; returns True if any progress was made
     # ------------------------------------------------------------------
     def step(self) -> bool:
+        tr = self.tracer
+        if not tr.wall:
+            return self._step() is not None
+        tr.begin("engine.step", engine=self.name)
+        did = self._step()
+        tr.end(did=did or "none")
+        return did is not None
+
+    def _step(self) -> Optional[str]:
+        """One step: what it did (``fetch``, ``prefill`` for a step of
+        the prefill composer, which may fall through to a decode, or
+        ``decode``), or None where it made no progress."""
         if self.governor is not None:
             # retune phi from live signals BEFORE the step so the step's
             # timing and power integrate at the decided frequency
@@ -292,14 +304,14 @@ class Engine:
         self._admit()
         if self.pending_fetch:
             self._fetch_step()
-            return True
+            return "fetch"
         if self.pending_tier_fetch:
             self._tier_fetch_step()
-            return True
+            return "fetch"
         if self.prefilling:
-            return self._compose_step()
+            return "prefill" if self._compose_step() else None
         if self.running:
-            return self._decode_step()
+            return "decode" if self._decode_step() else None
         if self.waiting and self.pool.free_pages > 0 \
                 and self.role in ("colocated", "prefill"):
             # nothing schedulable now but queued arrivals lie in the
@@ -311,8 +323,8 @@ class Engine:
                 self.t = t_next
                 self._admit()
                 if self.prefilling:
-                    return self._compose_step()
-        return False
+                    return "prefill" if self._compose_step() else None
+        return None
 
     def _compose_step(self):
         """Route a step with prefill work through the configured step
@@ -360,7 +372,13 @@ class Engine:
             self.tracer.lifecycle("fetch_start", seq.req.req_id, t0,
                                   engine=self.name)
         if self.executor is not None and handle is not None:
+            # recorded here, not in the executor: a handle names no
+            # request
+            if self.tracer.wall:
+                self.tracer.begin("exec.fetch", req=seq.req.req_id)
             seq.state, seq.last_logits = self.executor.fetch(handle)
+            if self.tracer.wall:
+                self.tracer.end()
         if seq.req.decode_start_s is None:
             seq.req.decode_start_s = self.t
         if seq.req.first_token_s is None:
@@ -739,6 +757,8 @@ class RealExecutor:
                              f"DevicePagedKV")
         self.device = (kv.device if kv is not None
                        else params["embed"]["embedding"].device)
+        # wall-clock spans of each call; a cluster hands in its tracer
+        self.tracer = NULL_TRACER
 
     def _context_tokens(self, seq: EngineSeq) -> np.ndarray:
         """prompt + already-emitted tokens (recompute path needs both)."""
@@ -749,31 +769,57 @@ class RealExecutor:
         return np.asarray(toks[:seq.prefill_target], dtype=np.int64)
 
     def prefill(self, seq: EngineSeq):
+        """Spans (wall tracing on): ``exec.prefill`` with its ``req``
+        and ``tokens``, split into
+        ``prefill.forward`` (the model's call, enqueued), ``.kv_write``
+        (the prompt's pages, paged families) and ``.sync`` (the first
+        token read back, where the host waits on the device)."""
         import torch
+        tr = self.tracer
+        wall = tr.wall
+        if wall:
+            tr.begin("exec.prefill", req=seq.req.req_id,
+                     tokens=seq.prefill_target)
+            tr.begin("prefill.forward")
         toks = torch.as_tensor(self._context_tokens(seq),
                                device=self.device)[None, :]
-        if not self.paged:
+        if self.paged:
+            logits, cache = self.model.prefill(self.params,
+                                               {"tokens": toks})
+        else:
             s_max = seq.req.prompt_len + seq.req.output_len + 2
             logits, state = self.model.prefill(self.params, {"tokens": toks},
                                                s_max=s_max)
-            return state, logits, int(torch.argmax(logits[0]))
-        logits, cache = self.model.prefill(self.params, {"tokens": toks})
-        S = toks.shape[1]
-        assert not self.kv.pool.has_seq(seq.seq_id), "pages not released"
-        self.kv.pool.allocate(seq.seq_id, S)
-        self.kv.write_prefill(seq.seq_id, cache.k[:, 0], cache.v[:, 0])
+        if wall:
+            tr.switch("prefill.kv_write")
+        if self.paged:
+            S = toks.shape[1]
+            assert not self.kv.pool.has_seq(seq.seq_id), "pages not released"
+            self.kv.pool.allocate(seq.seq_id, S)
+            self.kv.write_prefill(seq.seq_id, cache.k[:, 0], cache.v[:, 0])
+            state = (seq.seq_id, S)
+        if wall:
+            tr.switch("prefill.sync")
         next_token = int(torch.argmax(logits[0]))
-        return (seq.seq_id, S), logits, next_token
+        if wall:
+            tr.end()
+            tr.end()
+        return state, logits, next_token
 
     def store(self, seq: EngineSeq):
+        tr = self.tracer
+        if tr.wall:
+            tr.begin("exec.store", req=seq.req.req_id)
         if self.paged:
             k, v = self.kv.gather_dense(seq.seq_id)
             payload = (seq.seq_id, k, v, seq.last_logits)
         else:
             payload = (tuple(seq.state), seq.last_logits)
-        if self.path is None:
-            return payload
-        return self.path.store(payload)
+        if self.path is not None:
+            payload = self.path.store(payload)
+        if tr.wall:
+            tr.end()
+        return payload
 
     def fetch(self, handle):
         payload = handle if self.path is None else self.path.fetch(handle)
@@ -787,40 +833,64 @@ class RealExecutor:
         return (seq_id, k.shape[1]), logits
 
     def release(self, seq: EngineSeq) -> None:
+        tr = self.tracer
+        if tr.wall:
+            tr.begin("exec.release", req=seq.req.req_id)
         if self.paged:
             self.kv.free(seq.seq_id)
         else:
             seq.state = None
+        if tr.wall:
+            tr.end()
 
     def decode_batch(self, batch: List[EngineSeq]) -> None:
+        """Spans (wall tracing on): ``exec.decode`` with its ``rows``,
+        split into ``decode.prepare`` (the step's inputs: tokens,
+        positions, and the block table with each row's new page, or the
+        joined recurrent states), ``.forward`` (the model's call: the
+        host enqueues the step), ``.sync`` (the tokens read back, where
+        the host waits on the device) and ``.commit`` (each row's new
+        token and state)."""
         import torch
+        tr = self.tracer
+        wall = tr.wall
+        if wall:
+            tr.begin("exec.decode", rows=len(batch))
+            tr.begin("decode.prepare")
         dev = self.device
         tokens = torch.tensor([s.next_token for s in batch],
                               dtype=torch.int64, device=dev)
         pos = torch.tensor([s.ctx for s in batch], dtype=torch.int32,
                            device=dev)
-        if not self.paged:
+        if self.paged:
+            pool = self.kv.pool
+            for s in batch:
+                pool.allocate(s.seq_id, 1)       # room for the new token
+            tables = [pool.block_table(s.seq_id) for s in batch]
+            max_pages = max(len(t) for t in tables)
+            block_table = torch.tensor(
+                [t + [0] * (max_pages - len(t)) for t in tables],
+                dtype=torch.int32, device=dev)
+            if wall:
+                tr.switch("decode.forward")
+            logits = self.model.decode_step_paged(
+                self.params, tokens, self.kv.k, self.kv.v, block_table, pos)
+        else:
             joined = self.model.state_type(*(
                 torch.cat(xs, dim=1) for xs in zip(*(s.state for s in batch))))
+            if wall:
+                tr.switch("decode.forward")
             logits, new_state = self.model.decode_step(
                 self.params, tokens, joined, pos)
-            nxt = torch.argmax(logits, dim=-1).tolist()
-            for i, (seq, tok) in enumerate(zip(batch, nxt)):
-                seq.state = self.model.state_type(
-                    *(x[:, i:i + 1] for x in new_state))
-                seq.next_token = int(tok)
-            return
-        pool = self.kv.pool
-        for s in batch:
-            pool.allocate(s.seq_id, 1)       # room for the new token
-        tables = [pool.block_table(s.seq_id) for s in batch]
-        max_pages = max(len(t) for t in tables)
-        block_table = torch.tensor(
-            [t + [0] * (max_pages - len(t)) for t in tables],
-            dtype=torch.int32, device=dev)
-        logits = self.model.decode_step_paged(
-            self.params, tokens, self.kv.k, self.kv.v, block_table, pos)
+        if wall:
+            tr.switch("decode.sync")
         nxt = torch.argmax(logits, dim=-1).tolist()
-        for seq, tok in zip(batch, nxt):
-            seq.state = (seq.seq_id, seq.ctx + 1)
+        if wall:
+            tr.switch("decode.commit")
+        for i, (seq, tok) in enumerate(zip(batch, nxt)):
+            seq.state = (seq.seq_id, seq.ctx + 1) if self.paged else \
+                self.model.state_type(*(x[:, i:i + 1] for x in new_state))
             seq.next_token = int(tok)
+        if wall:
+            tr.end()
+            tr.end()

@@ -53,6 +53,13 @@ def map_tensors(fn: Callable[[torch.Tensor], Any], obj: Any) -> Any:
     return obj
 
 
+def payload_bytes(obj: Any) -> int:
+    """Bytes of the tensors in a payload."""
+    sizes = []
+    map_tensors(lambda x: sizes.append(x.numel() * x.element_size()), obj)
+    return sum(sizes)
+
+
 def _device_of(obj: Any) -> Optional[torch.device]:
     found = []
     map_tensors(found.append, obj)

@@ -32,7 +32,8 @@ from repro_torch.core.fastpath import coalesce_window
 from repro_torch.core.kvcache import PagedKVPool
 from repro_torch.core.request import Request, WorkloadMetrics, summarize
 from repro_torch.core.prefix_cache import PrefixCache
-from repro_torch.core.transfer import LegCost, TransferPath, make_path
+from repro_torch.core.transfer import (LegCost, TransferPath, make_path,
+                                       payload_bytes)
 from repro_torch.govern import make_governor
 from repro_torch.kvstore import ReuseSpec, TieredKVStore, as_reuse_spec
 from repro_torch.govern.telemetry import ABSENT, IDLE, SLEEP, PowerTrace
@@ -223,6 +224,8 @@ class FleetCluster:
 
         for eng in self.engines:
             eng.tracer = self.tracer
+            if eng.executor is not None:
+                eng.executor.tracer = self.tracer
 
         # per-step scheduler (repro.sched, DESIGN.md section 17): one
         # normalized SchedulerSpec shared by every engine. None leaves
@@ -366,6 +369,14 @@ class FleetCluster:
 
     # ------------------------------------------------------------------
     def _push(self, t: float, fn: Callable[[], None]) -> None:
+        tr = self.tracer
+        if tr.wall:                      # each event fired is a span
+            event = fn
+
+            def fn():
+                tr.begin("cluster.event")
+                event()
+                tr.end()
         heapq.heappush(self._events, (t, next(self._counter), fn))
 
     # ------------------------------------------------------------------
@@ -443,10 +454,19 @@ class FleetCluster:
         for comp, joules in store.energy_j.items():
             self.meter.add(comp, joules, stage="transfer-store")
         handle = None
+        tr = self.tracer
+        moved = 0
         if engine.executor is not None:
             # real byte movement over the ROUTED pair's path (the
-            # path-less executor just packages the state payload)
-            handle = path.store(engine.executor.store(seq))
+            # path-less executor just packages the state payload); the
+            # path's spans are recorded here, where the request is known
+            payload = engine.executor.store(seq)
+            if tr.wall:
+                moved = payload_bytes(payload)
+                tr.begin("path.store", req=seq.req.req_id, nbytes=moved)
+            handle = path.store(payload)
+            if tr.wall:
+                tr.end()
 
         t_arrive = t_done + store.latency_s
         seq.req.transfer_done_s = t_arrive
@@ -475,7 +495,14 @@ class FleetCluster:
             # the reservation migrates from in-flight to decode_queue,
             # where the router's headroom counts it instead
             dec.inflight_kv_pages -= inflight
-            payload = path.fetch(handle) if handle is not None else None
+            payload = None
+            if handle is not None:
+                if tr.wall:
+                    tr.begin("path.fetch", req=seq.req.req_id,
+                             nbytes=moved)
+                payload = path.fetch(handle)
+                if tr.wall:
+                    tr.end()
             dec.enqueue_decode(seq, payload, fetch)
             dec.t = max(dec.t, t_arrive)
 
@@ -892,6 +919,9 @@ class FleetCluster:
             and (self.spec.scheduler is None
                  or self.spec.scheduler.coalescible) \
             and not self.spec.is_intra
+        tr = self.tracer
+        if tr.wall:
+            tr.begin("cluster.run", requests=len(requests))
         self._warm_stores(requests)
         self.submit(requests)
         if self.controller is not None and self.controller.wants_ticks:
@@ -960,6 +990,8 @@ class FleetCluster:
                              "idle", t0=t_start)
 
         total_tokens = sum(r.prompt_len + r.generated for r in requests)
+        if tr.wall:
+            tr.end()
         return SetupResult(setup=self.setup, metrics=summarize(requests),
                            energy=self.meter, requests=requests,
                            makespan_s=makespan, total_tokens=total_tokens)

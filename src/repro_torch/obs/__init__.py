@@ -1,6 +1,7 @@
-"""repro.obs — simulation-clock observability.
+"""repro.obs — observability.
 
-Request-lifecycle tracing (``trace``), a counter/gauge/histogram
+Request-lifecycle tracing on the simulation clock and wall-clock spans
+of the host (``trace``), a counter/gauge/histogram
 registry (``metrics``), Chrome trace-event / Perfetto export
 (``export``), and per-request SLO-violation attribution (``slo``).
 See DESIGN.md section 16 for the determinism and fastpath-equivalence
@@ -8,7 +9,8 @@ contracts.
 """
 from .trace import (CONTROLLER_TRACK, GOVERNOR_TRACK, INSTANT,
                     LIFECYCLE_TRACK, NULL_TRACER, SPAN, TIER_TRACK,
-                    TraceEvent, Tracer, controller_action_from_event,
+                    TraceEvent, Tracer, WallSpan, self_times,
+                    controller_action_from_event,
                     event_from_controller_action,
                     event_from_governor_decision,
                     governor_decision_from_event)
@@ -21,7 +23,8 @@ from .slo import (Attribution, attribute_run, attribute_tpot,
                   attribute_ttft, blame_table, transfer_queue_share)
 
 __all__ = [
-    "TraceEvent", "Tracer", "NULL_TRACER", "SPAN", "INSTANT",
+    "TraceEvent", "Tracer", "NULL_TRACER", "SPAN", "INSTANT", "WallSpan",
+    "self_times",
     "LIFECYCLE_TRACK", "GOVERNOR_TRACK", "CONTROLLER_TRACK", "TIER_TRACK",
     "event_from_governor_decision", "governor_decision_from_event",
     "event_from_controller_action", "controller_action_from_event",

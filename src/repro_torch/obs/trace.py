@@ -1,4 +1,4 @@
-"""Simulation-clock tracing: the one event schema behind observability.
+"""Tracing: the simulation clock's events, and the host's wall-clock spans.
 
 ``Tracer`` collects :class:`TraceEvent` records — engine phase/batch
 spans, per-request lifecycle instants, KV-transfer spans, tier
@@ -24,6 +24,21 @@ Determinism contract (DESIGN.md section 16, locked by
     (a coalesced window batches its finish emissions, so only the
     cross-engine interleaving of the event *list* may differ).
 
+**Wall-clock spans** are a second family on the same ``Tracer``,
+switched by its own flag (``Tracer(wall=True)``; ``enabled`` switches
+the simulation-clock hooks alone). A :class:`WallSpan` is stamped with
+``time.perf_counter_ns()`` and stored in ``time.perf_counter`` seconds:
+the clock of the benchmark harness's own spans (``portbench/``), onto
+which its device trace is mapped, so that program spans, harness spans
+and device operations share one timeline. A span has an id, its
+parent's id (the innermost span open when it began) and flat args; a
+span tied to one request carries ``req``. Wall spans live
+in ``Tracer.walls``, apart from ``events``, so the simulation-clock
+views, the exporters and the SLO attribution see exactly what they
+would see without them. Hook sites guard on ``tracer.wall`` as the
+simulation hooks guard on ``tracer.enabled``: off, each costs one
+attribute read and a branch, and ``NULL_TRACER`` records nothing.
+
 This module is dependency-free at import time (stdlib only):
 ``repro.core.engine`` imports it, so it must not import ``repro``
 back. The converters at the bottom single-source the three event
@@ -33,13 +48,15 @@ JSON round-trips tested in ``tests/test_obs.py``.
 """
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["SPAN", "INSTANT", "LIFECYCLE_TRACK", "GOVERNOR_TRACK",
-           "CONTROLLER_TRACK", "TIER_TRACK", "TraceEvent", "Tracer",
-           "NULL_TRACER", "event_from_governor_decision",
+           "CONTROLLER_TRACK", "TIER_TRACK", "TraceEvent", "WallSpan",
+           "Tracer", "NULL_TRACER", "self_times",
+           "event_from_governor_decision",
            "governor_decision_from_event", "event_from_controller_action",
            "controller_action_from_event"]
 
@@ -86,15 +103,77 @@ class TraceEvent:
                    t1=d["t1"], kind=d["kind"], args=dict(d["args"]))
 
 
+@dataclass
+class WallSpan:
+    """One wall-clock span: ``t0``/``t1`` in ``time.perf_counter``
+    seconds (``t1`` is None while it is open), ``id`` its index in
+    ``Tracer.walls``, ``parent`` the id of the span it began inside."""
+    name: str
+    t0: float
+    t1: Optional[float]
+    id: int
+    parent: Optional[int]
+    args: Dict[str, Any]
+
+    @property
+    def dur(self) -> float:
+        return self.t1 - self.t0
+
+
+def _now() -> float:
+    return time.perf_counter_ns() * 1e-9
+
+
+def self_times(spans: Iterable[WallSpan]) -> Dict[int, float]:
+    """{span id: its duration less the part its children cover}.
+    Children nest inside their parent and follow one another, so the
+    part they cover is the sum of their durations; a child whose parent
+    is not among ``spans`` counts for nobody."""
+    spans = list(spans)
+    out = {s.id: s.dur for s in spans}
+    for s in spans:
+        if s.parent in out:
+            out[s.parent] -= s.dur
+    return out
+
+
 class Tracer:
     """Append-only event sink. Hot paths guard on ``tracer.enabled``
+    (simulation-clock events) or ``tracer.wall`` (wall-clock spans)
     before computing any event arguments, so the disabled default costs
     one attribute read per hook site."""
 
     enabled = True
 
-    def __init__(self):
+    def __init__(self, *, enabled: bool = True, wall: bool = False):
+        self.enabled = enabled
+        self.wall = wall
         self.events: List[TraceEvent] = []
+        self.walls: List[WallSpan] = []
+        self._open: List[WallSpan] = []
+
+    # ---- wall-clock spans --------------------------------------------
+    def begin(self, name: str, **args) -> None:
+        """Open a span inside the innermost open one."""
+        parent = self._open[-1].id if self._open else None
+        s = WallSpan(name, _now(), None, len(self.walls), parent, args)
+        self.walls.append(s)
+        self._open.append(s)
+
+    def end(self, **args) -> None:
+        """Close the innermost open span, adding ``args`` to its own."""
+        s = self._open.pop()
+        s.t1 = _now()
+        s.args.update(args)
+
+    def switch(self, name: str, **args) -> None:
+        """Close the innermost open span and open its next sibling at the
+        same instant, so that consecutive phases leave no gap."""
+        s = self._open.pop()
+        s.t1 = t = _now()
+        nxt = WallSpan(name, t, None, len(self.walls), s.parent, args)
+        self.walls.append(nxt)
+        self._open.append(nxt)
 
     # ---- emission ----------------------------------------------------
     def span(self, track: str, name: str, t0: float, t1: float,
@@ -209,7 +288,19 @@ class _NullTracer(Tracer):
 
     enabled = False
 
+    def __init__(self):
+        super().__init__(enabled=False, wall=False)
+
     def span(self, track, name, t0, t1, **args):
+        pass
+
+    def begin(self, name, **args):
+        pass
+
+    def end(self, **args):
+        pass
+
+    def switch(self, name, **args):
         pass
 
     def instant(self, track, name, t, **args):
