@@ -1120,7 +1120,8 @@ def check_steps_against_plain(torch, model, params, cfg):
     kernel_step = model.decode_step_paged
     errs = []
 
-    def step(params, tokens, k_pages, v_pages, block_table, pos):
+    def step(params, tokens, k_pages, v_pages, block_table, pos,
+             sink_page=None):
         page, n = k_pages.shape[2], pos.tolist()
         shape = (k_pages.shape[0], len(n), max(n) + 1, *k_pages.shape[3:])
         k, v = k_pages.new_zeros(shape), v_pages.new_zeros(shape)
@@ -1130,7 +1131,7 @@ def check_steps_against_plain(torch, model, params, cfg):
             v[:, b, :m] = v_pages[:, rows].flatten(1, 2)[:, :m]
         want, _ = model.decode_step(params, tokens, AttnCache(k, v), pos)
         got = kernel_step(params, tokens, k_pages, v_pages, block_table,
-                          pos)
+                          pos, sink_page)
         errs.append((max_err(torch, got, want),
                      within(torch, got, want, 1e-3)))
         return got

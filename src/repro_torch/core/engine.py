@@ -848,9 +848,11 @@ class RealExecutor:
         split into ``decode.prepare`` (the step's inputs: tokens,
         positions, and the block table with each row's new page, or the
         joined recurrent states), ``.forward`` (the model's call: the
-        host enqueues the step), ``.sync`` (the tokens read back, where
-        the host waits on the device) and ``.commit`` (each row's new
-        token and state)."""
+        host enqueues the step, or copies its inputs and replays a CUDA
+        graph; its arg ``graph`` is the graph's row bucket, 0 for an
+        eager step), ``.sync`` (the tokens read back, where the host
+        waits on the device) and ``.commit`` (each row's new token and
+        state)."""
         import torch
         tr = self.tracer
         wall = tr.wall
@@ -874,7 +876,9 @@ class RealExecutor:
             if wall:
                 tr.switch("decode.forward")
             logits = self.model.decode_step_paged(
-                self.params, tokens, self.kv.k, self.kv.v, block_table, pos)
+                self.params, tokens, self.kv.k, self.kv.v, block_table, pos,
+                self.kv.sink_page)
+            graph = self.model.graph_stats.last
         else:
             joined = self.model.state_type(*(
                 torch.cat(xs, dim=1) for xs in zip(*(s.state for s in batch))))
@@ -882,7 +886,9 @@ class RealExecutor:
                 tr.switch("decode.forward")
             logits, new_state = self.model.decode_step(
                 self.params, tokens, joined, pos)
+            graph = 0
         if wall:
+            tr.note(graph=graph)
             tr.switch("decode.sync")
         nxt = torch.argmax(logits, dim=-1).tolist()
         if wall:

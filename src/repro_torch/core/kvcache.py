@@ -172,15 +172,18 @@ class PagedKVPool:
 
 # ----------------------------------------------------------------------
 # Device-backed pool for the dense-family real path: physical pages
-# [L, P, page, KV, hd] on one device, shared by every executor there.
-# Writes are in place; ``pool`` holds the physical page ids.
+# [L, P + 1, page, KV, hd] on one device, shared by every executor there.
+# Writes are in place; ``pool`` holds the physical page ids. The last
+# page, ``sink_page``, is past the pool's: the pool never grants it, and
+# the padded rows of a decode step replayed as a CUDA graph write there.
 # ----------------------------------------------------------------------
 class DevicePagedKV:
     def __init__(self, pool: PagedKVPool, num_layers: int, kv_heads: int,
                  head_dim: int, dtype=torch.float32, device="cuda"):
         self.pool = pool
         self.device = torch.device(device)
-        shape = (num_layers, pool.num_pages, pool.page_size, kv_heads,
+        self.sink_page = pool.num_pages
+        shape = (num_layers, pool.num_pages + 1, pool.page_size, kv_heads,
                  head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)

@@ -16,7 +16,7 @@ their device's backend, and the operators give their shapes.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +27,29 @@ from . import paged_decode as _paged
 from . import rwkv6_scan as _rwkv
 
 BACKENDS = ("auto", "ref", "cuda")
+
+# every kernel's launch counter: (the function that carries it, its name)
+_COUNTERS = tuple((fn, name) for fn, names in (
+    (_flash.flash_attention, ("launches", "backward_launches")),
+    (_paged.paged_attention, ("launches",)),
+    (_rwkv.rwkv6_scan, ("launches", "backward_launches",
+                        "backward_chunked_launches")),
+    (_ssd.mamba2_ssd, ("launches", "backward_launches",
+                       "backward_chunked_launches")),
+) for name in names)
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """Every kernel's launch counter, in one fixed order."""
+    return tuple(getattr(fn, name) for fn, name in _COUNTERS)
+
+
+def add_launches(delta: Sequence[int]) -> None:
+    """Add ``delta``, a difference of two ``launch_counts()``, to the
+    counters: a replayed CUDA graph launches again what its capture
+    counted."""
+    for (fn, name), d in zip(_COUNTERS, delta):
+        setattr(fn, name, getattr(fn, name) + d)
 
 
 def resolve_backend(backend: Optional[str], x: torch.Tensor) -> str:

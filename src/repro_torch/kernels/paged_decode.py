@@ -53,6 +53,18 @@ MAX_SPLIT_PAGES = 256
 MAX_SPLITS = 512
 
 
+def _min_run_pages(page: int) -> int:
+    return max(1, -(-MIN_SPLIT_TOKENS // page))
+
+
+def single_run_pages(page: int, row_bytes: int) -> int:
+    """The widest block table that ``split_plan`` walks as one run a row
+    (K and V of a kv head within MAX_SPLIT_BYTES, at most
+    MAX_SPLIT_PAGES pages): 80 pages for bf16 at hd 128 and page 16."""
+    return max(_min_run_pages(page),
+               min(MAX_SPLIT_PAGES, MAX_SPLIT_BYTES // (2 * row_bytes * page)))
+
+
 @functools.lru_cache(maxsize=1024)
 def split_plan(B: int, KV: int, max_pages: int, page: int, row_bytes: int,
                sms: int) -> Tuple[int, int]:
@@ -63,9 +75,8 @@ def split_plan(B: int, KV: int, max_pages: int, page: int, row_bytes: int,
     size). Host-known sizes only: the lengths are on the card."""
     if max_pages <= 0:
         return 1, 1
-    lo = max(1, -(-MIN_SPLIT_TOKENS // page))
-    hi = max(lo, min(MAX_SPLIT_PAGES,
-                     MAX_SPLIT_BYTES // (2 * row_bytes * page)))
+    lo = _min_run_pages(page)
+    hi = single_run_pages(page, row_bytes)
     splits = -(-max_pages // hi)                 # runs the bytes ask for
     if splits > 1:
         splits = max(splits, min(round(FILL_PER_SM * sms / (B * KV)),

@@ -24,7 +24,9 @@ Signatures follow the reference, with an explicit ``device`` and
   init_decode_state(batch_size, s_max, dtype, device, s_src) -> state
                     (zeros; ssm, hybrid, vlm and encdec)
   decode_step_paged(params, tokens[B], k_pages, v_pages, block_table,
-                    pos[B]) -> logits[B,V]            (dense and moe)
+                    pos[B], sink_page=None) -> logits[B,V]
+                    (dense and moe; the dense family's step replays
+                    as a CUDA graph where it can, ``decode_graph``)
 
 The decode state is ``state_type``: the dense KV cache (AttnCache; dense,
 moe, vlm), the fixed-size recurrent state (RWKVState), the mixed one
@@ -37,6 +39,7 @@ dtypes; the dense and moe families' decode state is the dense cache
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -45,6 +48,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.train.optimizer import tree_leaves
+from . import decode_graph as DG
 from . import encdec as ED
 from . import mamba2 as MB
 from . import moe as MOE
@@ -80,6 +84,14 @@ class Model:
         self.paged = cfg.family in PAGED     # serving decodes from the pool
         self.state_type = _STATES[cfg.family]
         self._mod = _MODULES[cfg.family]
+        if self.paged:
+            self.decode_graphs = DG.DecodeGraphs(cfg, functools.partial(
+                self._mod.decode_step_paged, cfg=cfg))
+
+    @property
+    def graph_stats(self) -> DG.GraphStats:
+        """Captures, replays and eager steps of ``decode_step_paged``."""
+        return self.decode_graphs.stats
 
     def init(self, generator: torch.Generator, device="cuda") -> Any:
         return self._mod.init(self.cfg, generator, device)
@@ -155,14 +167,19 @@ class Model:
 
     def decode_step_paged(self, params, tokens: torch.Tensor,
                           k_pages: torch.Tensor, v_pages: torch.Tensor,
-                          block_table: torch.Tensor,
-                          pos: torch.Tensor) -> torch.Tensor:
+                          block_table: torch.Tensor, pos: torch.Tensor,
+                          sink_page: Optional[int] = None) -> torch.Tensor:
+        """``sink_page``: a page of ``k_pages`` that no sequence reads
+        (``DevicePagedKV.sink_page``), where the padded rows of a
+        replayed step write; without it every step runs eagerly."""
         if not self.paged:
             raise NotImplementedError(
                 f"{self.cfg.name}: paged decode is the {PAGED} families'; "
                 f"{self.family!r} decodes its own state (decode_step)")
-        return self._mod.decode_step_paged(params, tokens, k_pages, v_pages,
-                                           block_table, pos, self.cfg)
+        args = (params, tokens, k_pages, v_pages, block_table, pos)
+        if self.family != "dense":
+            return self.decode_graphs.eager("family", *args)
+        return self.decode_graphs(*args, sink_page)
 
     # ------------------------------------------------------------------
     # the reference's dry-run stand-ins, as meta tensors

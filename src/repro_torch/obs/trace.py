@@ -166,6 +166,10 @@ class Tracer:
         s.t1 = _now()
         s.args.update(args)
 
+    def note(self, **args) -> None:
+        """Add ``args`` to the innermost open span."""
+        self._open[-1].args.update(args)
+
     def switch(self, name: str, **args) -> None:
         """Close the innermost open span and open its next sibling at the
         same instant, so that consecutive phases leave no gap."""
@@ -298,6 +302,9 @@ class _NullTracer(Tracer):
         pass
 
     def end(self, **args):
+        pass
+
+    def note(self, **args):
         pass
 
     def switch(self, name, **args):

@@ -8,6 +8,8 @@ that has only torch:
 
   python -m pytest --noconftest -q tests/test_torch_card.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,6 +18,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import DevicePagedKV, PagedKVPool  # noqa: E402
 from repro_torch.kernels import (flash_prefill, mamba2_ssd, paged_decode,  # noqa: E402
                                  ref, rwkv6_scan)
+from repro_torch.models import decode_graph as DG  # noqa: E402
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.train.optimizer import tree_leaves  # noqa: E402
 
@@ -1090,3 +1093,157 @@ def test_operators_opcheck_on_card(card, dtype):
     for name, (op, args) in _op_cases_on_card(card, dtype).items():
         res = torch.library.opcheck(op.default, args)
         assert set(res.values()) == {"SUCCESS"}, (name, res)
+
+
+# ----------------------------------------------------------------------
+# the dense paged decode step replayed as CUDA graphs
+# ----------------------------------------------------------------------
+def _graph_cfg():
+    """A tiny dense config at yi-34b's head shape: hd 128, G = 7, bf16."""
+    cfg = configs.reduce_for_smoke(configs.REGISTRY["yi-34b"])
+    return dataclasses.replace(cfg, d_model=256, num_heads=14,
+                               num_kv_heads=2, head_dim=128, d_ff=512,
+                               param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+
+
+def _graph_pool(cfg, model, params, lens, card, steps=20):
+    pool = PagedKVPool(num_pages=sum(-(-(n + steps) // 16) for n in lens)
+                       + 3, page_size=16)
+    kv = DevicePagedKV(pool, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                       dtype=torch.bfloat16, device="cuda")
+    pool.allocate(999, 40)                 # scatter the sequences' pages
+    for sid, n in enumerate(lens):
+        toks = torch.randint(0, cfg.vocab_size, (1, n), generator=card,
+                             device="cuda")
+        _, cache = model.prefill(params, {"tokens": toks})
+        pool.allocate(sid, n)
+        kv.write_prefill(sid, cache.k[:, 0], cache.v[:, 0])
+    pool.free_seq(999)
+    return kv
+
+
+def _step_inputs(kv, ctx):
+    """Each row's new page granted, and the executor's block table."""
+    for s in range(len(ctx)):
+        kv.pool.allocate(s, 1)
+    tables = [kv.pool.block_table(s) for s in range(len(ctx))]
+    w = max(map(len, tables))
+    bt = torch.tensor([t + [0] * (w - len(t)) for t in tables],
+                      dtype=torch.int32, device="cuda")
+    return bt, torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("lens", [
+    [5], [3, 70], [17, 250, 1, 99], [40] * 8, [1200, 7, 640, 33, 1250],
+    [2 + 50 * i for i in range(13)], [30 + 7 * i for i in range(64)]],
+    ids=lambda lens: f"B{len(lens)}")
+def test_decode_graph_replays_the_eager_step(card, lens):
+    """20 steps replayed against the eager step on the same inputs (the
+    eager step's greedy tokens fed to both): the same tokens, logits
+    within bf16 rounding, the K/V pages bit for bit except the sink,
+    each replay's logits a tensor of its own, and one paged launch
+    counted a layer a step, as eagerly (the capture's warm-up and the
+    captures themselves are not steps)."""
+    cfg = _graph_cfg()
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    kv = _graph_pool(cfg, model, params, lens, card)
+    ke, ve = kv.k.clone(), kv.v.clone()          # the eager run's pages
+    sink, B, st = kv.sink_page, len(lens), model.graph_stats
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=card,
+                         device="cuda")
+    ctx, prev = list(lens), None
+    for step in range(20):
+        bt, pos = _step_inputs(kv, ctx)
+        n0 = paged_decode.paged_attention.launches
+        want = model.decode_step_paged(params, toks, ke, ve, bt, pos)
+        n1 = paged_decode.paged_attention.launches
+        got = model.decode_step_paged(params, toks, kv.k, kv.v, bt, pos,
+                                      sink_page=sink)
+        n2 = paged_decode.paged_attention.launches
+        assert st.last == DG.bucket_for(B)
+        assert n1 - n0 == cfg.num_layers
+        assert n2 - n1 == cfg.num_layers
+        assert got.shape == want.shape and got._base is None
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        if prev is not None:                 # not overwritten by a replay
+            assert torch.equal(prev[0], prev[1])
+        prev = (got, got.clone())
+        toks = want.argmax(-1)
+        ctx = [c + 1 for c in ctx]
+    torch.cuda.synchronize()
+    assert torch.equal(kv.k[:, :sink], ke[:, :sink])
+    assert torch.equal(kv.v[:, :sink], ve[:, :sink])
+    assert dict(st.eager) == {"no_sink": 20} and st.replays == 20
+    assert st.captures == len(DG.to_capture(B, ()))
+
+
+def test_decode_graph_falls_back_past_the_table_width(card):
+    """A table one page past the single-run width runs eagerly."""
+    cfg = _graph_cfg()
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    width = 80
+    kv = _graph_pool(cfg, model, params, [width * 16 - 1, 40], card, 2)
+    assert DG.table_width(kv.k) == width
+    ke, ve = kv.k.clone(), kv.v.clone()
+    ctx, toks, st = [width * 16 - 1, 40], torch.tensor([1, 2]).cuda(), \
+        model.graph_stats
+    for step, last in enumerate((2, 0)):
+        bt, pos = _step_inputs(kv, ctx)
+        assert bt.shape[1] == width + step
+        want = model.decode_step_paged(params, toks, ke, ve, bt, pos)
+        got = model.decode_step_paged(params, toks, kv.k, kv.v, bt, pos,
+                                      sink_page=kv.sink_page)
+        assert st.last == last
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+        ctx = [c + 1 for c in ctx]
+    assert st.eager["width"] == 1 and st.replays == 1
+
+
+def test_decode_graphs_serve_waves_without_new_captures(card):
+    """Real-mode dis-host waves over one model and one pool, as the
+    benchmark serves them: a first wave captures, a second (new
+    executors, same pool) captures nothing and replays every step; both
+    serve the eager run's tokens with its paged launches, and each
+    ``decode.forward`` span names its bucket (0 eagerly)."""
+    from repro_torch import core as T
+    from repro_torch.launch.serve import device_kv
+    from repro_torch.obs import Tracer
+    cfg = _graph_cfg()
+    model = get_model(cfg)
+    params = model.init(card, "cuda")
+    st = model.graph_stats
+
+    def reqs():
+        return T.random_workload(12, input_len=30, output_len=24,
+                                 vocab_size=cfg.vocab_size, seed=5)
+    kv, kv_eager = device_kv(cfg, reqs(), "cuda"), device_kv(cfg, reqs(),
+                                                             "cuda")
+    kv_eager.sink_page = None
+    out = {}
+    for name, pool in (("eager", kv_eager), ("first", kv), ("second", kv)):
+        tr = Tracer(enabled=False, wall=True)
+        n0, c0, r0 = (paged_decode.paged_attention.launches, st.captures,
+                      st.replays)
+        rs = reqs()
+        T.make_cluster("dis-host", cfg, executor_factory=lambda path, p=pool:
+                       T.RealExecutor(model, params, p, transfer_path=path),
+                       tracer=tr).run(rs)
+        steps = [(s.args["graph"], tr.walls[s.parent].args["rows"])
+                 for s in tr.walls if s.name == "decode.forward"]
+        out[name] = ([r.output_tokens for r in rs],
+                     paged_decode.paged_attention.launches - n0,
+                     st.captures - c0, st.replays - r0, steps)
+    eager, first, second = out["eager"], out["first"], out["second"]
+    assert eager[4] and all(g == 0 for g, _ in eager[4])
+    for run in (first, second):
+        assert run[0] == eager[0]
+        assert [g for g, _ in run[4]] == [DG.bucket_for(n)
+                                          for _, n in run[4]]
+        assert run[3] == len(run[4])
+    assert first[2] > 0 and second[2] == 0
+    assert first[1] == second[1] == eager[1]
+    assert dict(st.eager) == {"no_sink": len(eager[4])}
